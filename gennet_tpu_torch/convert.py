@@ -1,0 +1,67 @@
+"""Flax parameter trees → PyTorch ``state_dict``s for G, D and the CNN PE.
+
+Inputs are nested dicts of numpy arrays (as ``jax.device_get`` returns
+them); outputs are ``{name: torch.Tensor}`` for ``load_state_dict``. The
+layout rules:
+
+- Dense kernel (in, out) → ``Linear.weight`` (out, in). The models flatten
+  in flax's channels-last order, so the kernel needs no permutation.
+- Conv kernel (K, Cin, Cout) → ``Conv1d.weight`` (Cout, Cin, K).
+- BatchNorm scale/bias → weight/bias; batch_stats mean/var →
+  running_mean/running_var.
+"""
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.tensor(np.ascontiguousarray(np.asarray(a, np.float32)))
+
+
+def _dense(p, prefix):
+    return {f"{prefix}.weight": _t(np.asarray(p["kernel"]).T), f"{prefix}.bias": _t(p["bias"])}
+
+
+def _conv(p, prefix):
+    return {f"{prefix}.weight": _t(np.asarray(p["kernel"]).transpose(2, 1, 0)),
+            f"{prefix}.bias": _t(p["bias"])}
+
+
+def _bn(p, s, prefix):
+    return {f"{prefix}.weight": _t(p["scale"]), f"{prefix}.bias": _t(p["bias"]),
+            f"{prefix}.running_mean": _t(s["mean"]), f"{prefix}.running_var": _t(s["var"])}
+
+
+def flax_to_torch_generator(params, batch_stats) -> dict:
+    """BBHGenerator: Dense_0, BatchNorm_0..n, Conv_0..n (the last is the
+    1-channel output conv)."""
+    n_conv = sum(1 for k in params if k.startswith("Conv_"))
+    sd = _dense(params["Dense_0"], "dense")
+    for i in range(n_conv):
+        sd.update(_bn(params[f"BatchNorm_{i}"], batch_stats[f"BatchNorm_{i}"], f"norms.{i}"))
+    for i in range(n_conv - 1):
+        sd.update(_conv(params[f"Conv_{i}"], f"convs.{i}"))
+    sd.update(_conv(params[f"Conv_{n_conv - 1}"], "out_conv"))
+    return sd
+
+
+def flax_to_torch_discriminator(params, batch_stats=None) -> dict:
+    """PairDiscriminator: Conv_0..n, Dense_0 (no batch stats)."""
+    n_conv = sum(1 for k in params if k.startswith("Conv_"))
+    sd = _dense(params["Dense_0"], "dense")
+    for i in range(n_conv):
+        sd.update(_conv(params[f"Conv_{i}"], f"convs.{i}"))
+    return sd
+
+
+def flax_to_torch_pe(params, batch_stats=None) -> dict:
+    """DualBranchPE: Conv_0..3 + Dense_0 (mc branch), Conv_4..8 + Dense_1
+    (q branch), in flax's creation order."""
+    sd = _dense(params["Dense_0"], "mc_dense")
+    sd.update(_dense(params["Dense_1"], "q_dense"))
+    for i in range(4):
+        sd.update(_conv(params[f"Conv_{i}"], f"mc_convs.{i}"))
+    for i in range(5):
+        sd.update(_conv(params[f"Conv_{4 + i}"], f"q_convs.{i}"))
+    return sd

@@ -1,0 +1,53 @@
+"""CNN parameter point-estimator: whitened series → (mc, q) estimates."""
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from gennet_tpu_torch.models.layers import Conv1d, Dense, channels_last_flatten
+
+
+def _out_len(L: int, k: int, s: int, padding: str) -> int:
+    return -(-L // s) if padding == "SAME" else (L - k) // s + 1
+
+
+class DualBranchPE(nn.Module):
+    """The flagship PE net (ref: signal_pe_model with comb_pe_model=False,
+    bbhMahoGANy.py:356-404), one conv branch per parameter:
+
+    mc: Conv 64 (s2 SAME), 128/256/512 (s2 VALID) → flatten → Dense(1) → relu
+    q:  Conv 64 (SAME), 128/256 (VALID), 512/1024 (s2 VALID) → flatten
+        → Dense(1) → sigmoid
+    Takes (B, n_pix, 1), returns (B, 2) = [mc, q].
+    """
+
+    _MC = ((64, 2, "SAME"), (128, 2, "VALID"), (256, 2, "VALID"), (512, 2, "VALID"))
+    _Q = ((64, 1, "SAME"), (128, 1, "VALID"), (256, 1, "VALID"),
+          (512, 2, "VALID"), (1024, 2, "VALID"))
+
+    def __init__(self, n_pix: int = 1024, filt: int = 5):
+        super().__init__()
+        self.mc_convs, mc_flat = self._branch(self._MC, n_pix, filt)
+        self.mc_dense = Dense(mc_flat, 1)
+        self.q_convs, q_flat = self._branch(self._Q, n_pix, filt)
+        self.q_dense = Dense(q_flat, 1)
+
+    @staticmethod
+    def _branch(spec, L, filt):
+        convs, cin = nn.ModuleList(), 1
+        for feat, s, pad in spec:
+            convs.append(Conv1d(cin, feat, filt, stride=s, padding=pad))
+            cin, L = feat, _out_len(L, filt, s, pad)
+        return convs, cin * L
+
+    def forward(self, x, train: bool = False):
+        x = x.transpose(1, 2)
+        mc = x
+        for conv in self.mc_convs:
+            mc = F.relu(conv(mc))
+        mc = F.relu(self.mc_dense(channels_last_flatten(mc)))
+        q = x
+        for conv in self.q_convs:
+            q = F.relu(conv(q))
+        q = torch.sigmoid(self.q_dense(channels_last_flatten(q)))
+        return torch.cat([mc, q], dim=-1)

@@ -1,0 +1,64 @@
+"""Generator network: latent vector → noise-free waveform estimate."""
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from gennet_tpu_torch.models.layers import (BatchNorm, Conv1d, Dense, activation, dropout,
+                                            upsample1d)
+
+
+class BBHGenerator(nn.Module):
+    """The flagship 1-D convolutional generator
+    (ref: generator_model, bbhMahoGANy.py:212-295):
+
+    latent(100) → Dense(256·n/2) → BN → tanh → Dropout(0.2) → reshape(n/2, 256)
+    → [Up2 → Conv(64, 5, s2) → BN/tanh/Drop]     (length n/2)
+    → [Up2 → Conv(128, 5)    → BN/tanh/Drop]     (length n)
+    → [Conv(256, 5) → Conv(512, 5) → Conv(1024, 5), BN/tanh/Drop each]
+    → Conv(1, 5) linear → (B, n, 1)
+
+    BN_0 acts on the flat 256·n/2 Dense features before the reshape, as in
+    the JAX module. Only ``norm="batch"`` is ported.
+    """
+
+    def __init__(self, n_out: int = 1024, latent_dim: int = 100, filt: int = 5,
+                 act: str = "tanh", drate: float = 0.2, bn_momentum: float = 0.99,
+                 features: Sequence[int] = (64, 128, 256, 512, 1024), norm: str = "batch"):
+        super().__init__()
+        if norm != "batch":
+            raise NotImplementedError(f"BBHGenerator norm={norm!r}: only 'batch' is ported "
+                                      "(ROADMAP queue 1, item 4)")
+        self.n_out, self.latent_dim, self.act_name, self.drate = n_out, latent_dim, act, drate
+        half = n_out // 2
+        self.dense = Dense(latent_dim, 256 * half)
+        self.norms = nn.ModuleList([BatchNorm(256 * half, bn_momentum)])
+        self.convs = nn.ModuleList()
+        cin = 256
+        for i, feat in enumerate(features):
+            self.convs.append(Conv1d(cin, feat, filt, stride=2 if i == 0 else 1))
+            self.norms.append(BatchNorm(feat, bn_momentum))
+            cin = feat
+        self.out_conv = Conv1d(cin, 1, filt)
+
+    def forward(self, z, train: bool = False, bn_train: bool | None = None,
+                gen: torch.Generator | None = None, commit_stats: bool = False):
+        """z (B, latent) → (B, n_out, 1).
+
+        ``train`` turns dropout on (masks from ``gen``); ``bn_train``
+        (default: ``train``) picks batch-statistics BN; ``commit_stats``
+        advances the BN running averages from this pass.
+        """
+        bn = train if bn_train is None else bn_train
+        act = activation(self.act_name)
+        x = self.dense(z)
+        x = self.norms[0](x, bn, commit_stats)
+        x = dropout(act(x), self.drate, train, gen)
+        x = x.view(x.shape[0], self.n_out // 2, 256).transpose(1, 2)  # (B, 256, n/2)
+        for i, (conv, norm) in enumerate(zip(self.convs, self.norms[1:])):
+            if i <= 1:
+                x = upsample1d(x, 2)
+            x = norm(conv(x), bn, commit_stats)
+            x = dropout(act(x), self.drate, train, gen)
+        return self.out_conv(x).transpose(1, 2)

@@ -1,0 +1,154 @@
+"""Building blocks matching flax's layers in parameters, numerics and init.
+
+Layout: the networks keep the JAX package's public layouts ((B, L, C) in,
+(B, L, C) out) and run (B, C, L) inside, which is what ``F.conv1d`` takes.
+Parameter init follows flax: lecun_normal (a normal truncated at ±2σ,
+variance 1/fan_in) for kernels, zeros for biases, drawn from an explicit
+``torch.Generator``.
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# std of a unit normal truncated to [−2, 2]; flax divides by it so the
+# truncated draw keeps the requested variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator | None = None):
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+    return w
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with flax's init (weight (out, in) = kernelᵀ)."""
+
+    def reset_parameters(self, gen: torch.Generator | None = None):
+        lecun_normal_(self.weight, self.in_features, gen)
+        nn.init.zeros_(self.bias)
+
+
+class Conv1d(nn.Module):
+    """1-D convolution with flax padding semantics on (B, C, L) tensors.
+
+    ``padding="SAME"`` pads ``pad_total = max((ceil(L/s)−1)·s + K − L, 0)``
+    split low ``pad_total // 2``, high the rest (asymmetric at stride 2:
+    (1, 2) for K = 5 and even L, where a symmetric ``padding=2`` would shift
+    the output by one sample). ``"VALID"`` pads nothing. Weight layout
+    (Cout, Cin, K) = flax kernel (K, Cin, Cout) transposed.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 1,
+                 padding: str = "SAME"):
+        super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+        self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_ch))
+        self.reset_parameters()
+
+    def reset_parameters(self, gen: torch.Generator | None = None):
+        lecun_normal_(self.weight, self.weight.shape[1] * self.kernel_size, gen)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        if self.padding == "SAME":
+            L, K, s = x.shape[-1], self.kernel_size, self.stride
+            out_len = -(-L // s)
+            pad_total = max((out_len - 1) * s + K - L, 0)
+            x = F.pad(x, (pad_total // 2, pad_total - pad_total // 2))
+        return F.conv1d(x, self.weight, self.bias, stride=self.stride)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` semantics.
+
+    - In batch-statistics mode it normalises with the batch mean and the
+      biased batch variance, reduced over every axis but ``channel_dim``.
+    - The running averages take the BIASED variance with flax's
+      ``momentum`` (0.99 here = torch momentum 0.01), and are updated only
+      when the caller asks (``commit=True``): a forward pass in batch mode
+      can be run without advancing the state, as the GAN's D step needs.
+    - In running-average mode it normalises with the stored statistics.
+    """
+
+    def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-5,
+                 channel_dim: int = 1):
+        super().__init__()
+        self.momentum, self.eps, self.channel_dim = momentum, eps, channel_dim
+        self.weight = nn.Parameter(torch.ones(features))   # flax "scale"
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def reset_parameters(self, gen: torch.Generator | None = None):
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def forward(self, x, batch_stats: bool, commit: bool = False):
+        shape = [1] * x.ndim
+        shape[self.channel_dim] = -1
+        if batch_stats:
+            dims = [d for d in range(x.ndim) if d != self.channel_dim]
+            var, mean = torch.var_mean(x, dim=dims, correction=0)
+            if commit:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(m).add_((1.0 - m) * mean.detach())
+                    self.running_var.mul_(m).add_((1.0 - m) * var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+
+def dropout(x: torch.Tensor, rate: float, active: bool, gen: torch.Generator | None):
+    """flax ``nn.Dropout``: keep with probability 1 − rate and rescale. The
+    mask comes from ``gen`` (which must live on x's device), so a seed
+    reproduces the draw."""
+    if not active or rate == 0.0:
+        return x
+    if gen is None:
+        raise ValueError("dropout is active but no torch.Generator was given")
+    keep = torch.rand(x.shape, generator=gen, device=x.device, dtype=x.dtype) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def upsample1d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Keras UpSampling1D on (B, C, L): repeat each sample along L
+    (ref: bbhMahoGANy.py:249,258)."""
+    return torch.repeat_interleave(x, factor, dim=-1)
+
+
+def activation(name: str):
+    return {
+        "tanh": torch.tanh,
+        "relu": F.relu,
+        "leakyrelu": lambda x: F.leaky_relu(x, negative_slope=0.2),
+        "linear": lambda x: x,
+        "sigmoid": torch.sigmoid,
+        "elu": F.elu,
+    }[name]
+
+
+def channels_last_flatten(x: torch.Tensor) -> torch.Tensor:
+    """Flatten (B, C, L) in flax's (B, L, C) order, index l·C + c, so a
+    converted Dense kernel applies unchanged."""
+    return x.transpose(1, 2).reshape(x.shape[0], -1)
+
+
+def reset_module(module: nn.Module, gen: torch.Generator | None = None) -> nn.Module:
+    """Re-initialise every layer of ``module`` from ``gen``, in the order
+    the layers were registered."""
+    for m in module.modules():
+        if m is not module and hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
+    return module

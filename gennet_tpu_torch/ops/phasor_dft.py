@@ -1,0 +1,97 @@
+"""Fused phasor → inverse real DFT: the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+For h̃ = A e^{−iΨ} the template pipeline ends with
+
+    out[b, t] = Σ_k A[b,k]·cos Ψ[b,k]·C[k,t] + A[b,k]·sin Ψ[b,k]·S[k,t]
+
+(C/S the inverse-rDFT tables of :mod:`.dft`). On a CUDA tensor
+:func:`phasor_matmul` launches the hand-written kernel
+(``csrc/phasor_irdft.cu``, the port of ``gennet_tpu.ops.phasor_dft``'s
+Pallas kernel), which never writes the (B, K) phasor to device memory. On a
+CPU tensor it runs :func:`phasor_matmul_ref`, the plain version, which the
+tests and the on-card comparison also use. There is no fallback from one to
+the other: a CUDA tensor launches the kernel or raises.
+"""
+
+import torch
+
+from gennet_tpu_torch.ops import _build
+from gennet_tpu_torch.ops.dft import _irdft_slice_tables
+
+# Kernel launches in this process. Incremented only where the kernel is
+# launched, so a run can show that its main path went through the kernel.
+LAUNCHES = 0
+
+_TABLES: dict = {}  # (N, start, width, weights, device) → (cos, sin) tensors
+
+
+def phasor_matmul_ref(amp: torch.Tensor, phase: torch.Tensor, cos_t: torch.Tensor,
+                      sin_t: torch.Tensor) -> torch.Tensor:
+    """Plain version: materialises the phasor and runs two matmuls."""
+    return (amp * torch.cos(phase)) @ cos_t + (amp * torch.sin(phase)) @ sin_t
+
+
+def _check(amp, phase, cos_t, sin_t):
+    for name, t in (("amp", amp), ("phase", phase), ("cos_t", cos_t), ("sin_t", sin_t)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"phasor_matmul: {name} must be float32, got {t.dtype}")
+        if t.ndim != 2:
+            raise ValueError(f"phasor_matmul: {name} must be 2-D, got shape {tuple(t.shape)}")
+        if t.device != amp.device:
+            raise ValueError(f"phasor_matmul: {name} is on {t.device}, amp on {amp.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"phasor_matmul: {name} must be contiguous")
+    if phase.shape != amp.shape:
+        raise ValueError(f"phasor_matmul: phase {tuple(phase.shape)} != amp {tuple(amp.shape)}")
+    if cos_t.shape != sin_t.shape or cos_t.shape[0] != amp.shape[1]:
+        raise ValueError(f"phasor_matmul: tables {tuple(cos_t.shape)}/{tuple(sin_t.shape)} "
+                         f"do not match amp {tuple(amp.shape)}")
+
+
+def phasor_matmul(amp: torch.Tensor, phase: torch.Tensor, cos_t: torch.Tensor,
+                  sin_t: torch.Tensor) -> torch.Tensor:
+    """out[b,t] = Σ_k amp·cos(phase)·cos_t + amp·sin(phase)·sin_t.
+
+    amp/phase (B, K), cos_t/sin_t (K, T), all float32 and contiguous on one
+    device; any B, K, T (the kernel masks ragged edges). Forward only.
+    """
+    global LAUNCHES
+    _check(amp, phase, cos_t, sin_t)
+    if amp.device.type == "cpu":
+        return phasor_matmul_ref(amp, phase, cos_t, sin_t)
+    if amp.device.type != "cuda":
+        raise ValueError(f"phasor_matmul: unsupported device {amp.device}")
+    B, K = amp.shape
+    T = cos_t.shape[1]
+    out = torch.empty((B, T), dtype=torch.float32, device=amp.device)
+    if B == 0 or T == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(amp.device):
+        stream = torch.cuda.current_stream(amp.device).cuda_stream
+        rc = lib.phasor_irdft_f32(amp.data_ptr(), phase.data_ptr(), cos_t.data_ptr(),
+                                  sin_t.data_ptr(), out.data_ptr(), B, K, T, stream)
+    if rc != 0:
+        msg = lib.gennet_cuda_error_string(rc).decode()
+        raise RuntimeError(f"phasor_irdft_f32 launch failed ({rc}: {msg}) at B={B} K={K} T={T}")
+    LAUNCHES += 1
+    return out
+
+
+def slice_tables(N: int, start: int, width: int, weights: tuple | None, device) -> tuple:
+    """Device copies of the (N//2+1, width) iDFT column tables, cached."""
+    key = (N, start, width, weights, str(device))
+    if key not in _TABLES:
+        c, s = _irdft_slice_tables(N, start, width, weights)
+        _TABLES[key] = (torch.as_tensor(c, device=device), torch.as_tensor(s, device=device))
+    return _TABLES[key]
+
+
+def phasor_irdft_slice(amp: torch.Tensor, phase: torch.Tensor, N: int, start: int, width: int,
+                       weights: tuple | None = None) -> torch.Tensor:
+    """Inverse real DFT of h̃ = amp·e^{−i·phase} onto output samples
+    ``[start, start+width) mod N``, with optional per-sample weights folded
+    into the tables. amp/phase: (B, N//2+1), unpadded."""
+    cos_t, sin_t = slice_tables(N, start, width, weights, amp.device)
+    return phasor_matmul(amp.contiguous(), phase.contiguous(), cos_t, sin_t)

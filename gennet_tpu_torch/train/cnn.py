@@ -1,0 +1,144 @@
+"""CNN point-estimator training (port of ``gennet_tpu.train.cnn``).
+
+Random bank batch, noise augmentation of the first ``noise_frac`` of the
+batch with N(0, U(0, 5)) (ref: bbhMahoGANy.py:1160-1161), multi-output MSE
+on (mc, q), Adam(b1 = 0.5) with optax's cosine decay as a ``LambdaLR``, and
+an EMA of the parameters for evaluation.
+
+The state owns its module and updates it in place, so the step functions
+take no separate ``model`` argument. Randomness comes from an explicit
+``torch.Generator``; :func:`draw_cnn_batch` consumes all of it, so a batch
+made elsewhere (e.g. with numpy) drives :func:`cnn_update` unchanged.
+"""
+
+import math
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from gennet_tpu_torch.models.layers import reset_module
+from gennet_tpu_torch.train import losses as L
+
+
+@dataclass(frozen=True)
+class CNNConfig:
+    n_pix: int = 1024
+    batch_size: int = 8                 # ref pe_batch_size, :87
+    lr: float = 9e-5                    # ref: :98
+    beta1: float = 0.5
+    noise_frac: float = 1.0 / 8.0       # noisy fraction (ref: :113)
+    noise_scale_max: float = 5.0        # N(0, U(0,5)) augmentation (ref: :1161)
+    ema_decay: float = 0.0              # EMA of params for evaluation (0 = off)
+    lr_decay_steps: int = 0             # >0: cosine-decay the LR over this many
+    lr_min_frac: float = 0.1            # steps to lr·lr_min_frac
+
+
+def cosine_decay(decay_steps: int, alpha: float):
+    """optax.cosine_decay_schedule's multiplier as a function of the update
+    count (evaluated before the count increments, as optax does)."""
+    def f(count: int) -> float:
+        c = min(count, decay_steps)
+        return (1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * c / decay_steps)) + alpha
+    return f
+
+
+def adam(params, lr: float, beta1: float):
+    """optax.adam: m̂/(√v̂ + 1e-8), b2 = 0.999."""
+    return torch.optim.Adam(params, lr=lr, betas=(beta1, 0.999), eps=1e-8)
+
+
+@dataclass
+class CNNState:
+    model: nn.Module
+    opt: torch.optim.Optimizer
+    sched: torch.optim.lr_scheduler.LRScheduler | None
+    ema: dict | None = None       # EMA of parameters; None ⇒ equal to params
+    step: int = 0
+
+
+def init_cnn(gen: torch.Generator, model: nn.Module, cfg: CNNConfig, device) -> CNNState:
+    """Initialise ``model`` (flax's lecun_normal from ``gen``, a CPU
+    generator), move it to ``device`` and build its optimiser."""
+    reset_module(model, gen).to(device)
+    opt = adam(model.parameters(), cfg.lr, cfg.beta1)
+    sched = (torch.optim.lr_scheduler.LambdaLR(opt, cosine_decay(cfg.lr_decay_steps,
+                                                                 cfg.lr_min_frac))
+             if cfg.lr_decay_steps > 0 else None)
+    return CNNState(model=model, opt=opt, sched=sched)
+
+
+def draw_cnn_batch(gen: torch.Generator, bank: torch.Tensor, targets: torch.Tensor,
+                   cfg: CNNConfig):
+    """Gather a batch and augment it. Returns (x (B, n_pix, 1), y (B, npar))."""
+    B = cfg.batch_size
+    idx = torch.randint(0, bank.shape[0], (B,), generator=gen, device=gen.device).to(bank.device)
+    x = bank[idx]
+    y = targets[idx]
+    # one noise scale per batch on the first noise_frac of the samples
+    n_noisy = int(B * cfg.noise_frac)
+    if n_noisy > 0:
+        scale = cfg.noise_scale_max * torch.rand((), generator=gen, device=gen.device)
+        noise = torch.randn((B, x.shape[1]), generator=gen, device=gen.device, dtype=x.dtype)
+        mask = (torch.arange(B, device=x.device) < n_noisy).to(x.dtype)[:, None]
+        x = x + mask * (scale * noise).to(x.device)
+    return x[..., None], y
+
+
+def param_copy(model: nn.Module) -> dict:
+    """Detached copies of ``model``'s parameters, by name (an EMA's start)."""
+    return {k: v.detach().clone() for k, v in model.named_parameters()}
+
+
+def ema_update(ema: dict, model: nn.Module, decay: float):
+    """ema ← decay·ema + (1 − decay)·params, in place."""
+    live = dict(model.named_parameters())
+    keys = list(ema)
+    with torch.no_grad():
+        torch._foreach_lerp_([ema[k] for k in keys], [live[k].detach() for k in keys],
+                             1.0 - decay)
+
+
+def cnn_update(state: CNNState, x: torch.Tensor, y: torch.Tensor, *, cfg: CNNConfig):
+    """One MSE update on a materialised batch, in place. Returns
+    (state, {"pe_loss": 0-d tensor})."""
+    model = state.model
+    if cfg.ema_decay > 0.0 and state.ema is None:
+        state.ema = param_copy(model)
+    state.opt.zero_grad(set_to_none=True)
+    loss = L.mse_multi_output(model(x, train=True), y)
+    loss.backward()
+    state.opt.step()
+    if state.sched is not None:
+        state.sched.step()
+    if cfg.ema_decay > 0.0:
+        ema_update(state.ema, model, cfg.ema_decay)
+    state.step += 1
+    return state, {"pe_loss": loss.detach()}
+
+
+def cnn_step(state: CNNState, bank: torch.Tensor, targets: torch.Tensor, gen: torch.Generator,
+             *, cfg: CNNConfig):
+    """One CNN PE iteration: draw a batch, then update."""
+    x, y = draw_cnn_batch(gen, bank, targets, cfg)
+    return cnn_update(state, x, y, cfg=cfg)
+
+
+def predict(state: CNNState, x: torch.Tensor, chunk: int = 512, use_ema: bool = False):
+    """Chunked inference (chunking bounds activation memory: the PE nets
+    carry 1024-channel activations). ``use_ema`` evaluates the EMA
+    parameters."""
+    model = state.model
+    x = x[..., None] if x.ndim == 2 else x
+    params = state.ema if (use_ema and state.ema is not None) else None
+    outs = []
+    with torch.no_grad():
+        for i in range(0, x.shape[0], chunk):
+            xb = x[i : i + chunk]
+            if params is None:
+                outs.append(model(xb, train=False))
+            else:
+                outs.append(torch.func.functional_call(model, params, (xb,), {"train": False}))
+    if not outs:
+        return torch.zeros((0, 2), device=x.device)
+    return torch.cat(outs)

@@ -1,0 +1,63 @@
+"""Metrics logging: reference-style status lines, a jsonl history whose
+schema matches ``gennet_tpu.train.metrics`` (one ``{metric: float, "step":
+int}`` object per line), and a steps/sec meter."""
+
+import json
+import os
+import time
+
+import torch
+
+
+class MetricLogger:
+    """Persists per-step metric dicts to ``<out_dir>/<name>_metrics.jsonl``;
+    computes steps/sec."""
+
+    def __init__(self, out_dir: str | None = None, name: str = "train"):
+        self._last = time.perf_counter()
+        self._last_step = 0
+        self._fh = None
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            self._fh = open(os.path.join(out_dir, f"{name}_metrics.jsonl"), "a")
+
+    def log(self, step: int, metrics: dict):
+        row = {k: float(v) for k, v in metrics.items()}
+        row["step"] = step
+        if self._fh:
+            self._fh.write(json.dumps(row) + "\n")
+            self._fh.flush()
+
+    def steps_per_sec(self, step: int) -> float:
+        now = time.perf_counter()
+        ds = step - self._last_step
+        dt = now - self._last
+        self._last, self._last_step = now, step
+        return ds / dt if dt > 0 else float("nan")
+
+    def status_line(self, step: int, metrics: dict, sps: float | None = None) -> str:
+        """'123: [sD loss: x, acc: y]  [sG loss: ..]' (ref: bbhMahoGANy.py:
+        1303-1305), with steps/sec."""
+        parts = [f"{step}:"]
+        if "d_loss" in metrics:
+            parts.append(f"[sD loss: {float(metrics['d_loss']):f}, acc: {float(metrics.get('d_acc', 0)):f}]")
+        if "g_loss" in metrics:
+            parts.append(f"[sG loss: {float(metrics['g_loss']):f}, acc: {float(metrics.get('g_acc', 0)):f}]")
+        if "res_loss" in metrics and float(metrics.get("res_loss", 0)) != 0:
+            parts.append(f"[nG loss: {float(metrics['res_loss']):f}]")
+        if "pe_loss" in metrics:
+            parts.append(f"[PE loss: {float(metrics['pe_loss']):f}]")
+        if sps is not None:
+            parts.append(f"[{sps:.1f} steps/s]")
+        return "  ".join(parts)
+
+    def close(self):
+        if self._fh:
+            self._fh.close()
+
+
+def fetch_metrics(metrics: dict) -> dict:
+    """One device→host transfer for a dict of 0-d tensors."""
+    keys = list(metrics)
+    vals = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32) for k in keys]).cpu()
+    return {k: float(v) for k, v in zip(keys, vals.tolist())}
