@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship path once on one CUDA card.
+"""Drive the PyTorch port's flagship paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,14 +7,26 @@ Phases, in order; any failure raises, so the exit code is non-zero:
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions,
    the TF32 flags;
-2. build: compile the port's CUDA kernels from ``gennet_tpu_torch/csrc/``;
-3. kernel: the phasor → iDFT kernel against its plain PyTorch version on
-   random inputs and at the bank's real pass-A and pass-B shapes
-   (max|kernel − plain| / max|plain| ≤ 2e-5), with CUDA-event times;
-4. slice: ``train-bbh`` through the CLI at n_pix 1024 with the full-width
-   G, D and PE, 20 PE and 20 GAN steps, with the kernel's launch count
-   read around the run;
-5. throughput (information): bank templates/s, PE and GAN steps/s.
+2. build: compile the port's CUDA kernels from ``gennet_tpu_torch/csrc/``
+   (one nvcc per source, started together);
+3. phasor kernel: the phasor → iDFT kernel against its plain PyTorch
+   version on random inputs and at the bank's real pass-A and pass-B
+   shapes (max|kernel − plain| / max|plain| ≤ 2e-5), with CUDA-event times;
+4. phasor VJP: d_amp and d_phase through the kernel path's autograd
+   Function against autograd through the plain version, at pass B and at
+   B = 8 (≤ 1e-4·max);
+5. conv kernel: the conv1d kernel against its plain version
+   (``F.conv1d``, TF32 off) at the flagship's seven conv shapes, forward at
+   batch 8 and 256 and dx at batch 8, and every activation at G Conv_3's
+   shape (≤ 1e-4·max), with CUDA-event times;
+6. slice 1: ``train-bbh`` through the CLI at n_pix 1024 with the full-width
+   G, D and PE, 20 PE and 20 GAN steps, default recipe, with the phasor
+   kernel's launch count read around the run;
+7. slice 2: the same with ``--conv-impl pallas`` and the posterior routes
+   (ML recentering, likelihood resampling, ELBO library selection over two
+   pooled snapshots), with both kernels' launch counts read around it;
+8. throughput (information): bank templates/s, PE steps/s, and GAN steps/s
+   with ``conv_impl`` xla and pallas in turns.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -32,7 +44,14 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TOL = 2e-5            # max|kernel − plain| / max|plain| (tests/test_pallas_ops.py:75-76)
+CONV_TOL = 1e-4       # conv kernel and phasor VJP: float32 sums of Cin·K terms in other orders
 N_TIMED = 20          # timed repetitions (median) after warm-up
+# (name, L, Cin, Cout) of the flagship's conv layers at n_pix 1024, as the
+# stride-1 kernel sees them (G Conv_0 and D's layers sample its output)
+CONV_LAYERS = [("G Conv_0", 1024, 256, 64), ("G Conv_1", 1024, 64, 128),
+               ("G Conv_2", 1024, 128, 256), ("G Conv_3", 1024, 256, 512),
+               ("G Conv_4", 1024, 512, 1024), ("D Conv_0", 1024, 2, 256),
+               ("D Conv_1", 512, 256, 512)]
 
 
 def fail(msg: str):
@@ -82,6 +101,27 @@ def compare(name, amp, phase, cos_t, sin_t, P):
     return out, ref, err, rel
 
 
+def conv_compare(name, x, w, b, act, C):
+    """Conv kernel vs plain on one input; returns (abs err, rel err)."""
+    import torch
+
+    out = C.conv1d_same(x, w, b, act=act)
+    ref = C.conv1d_same_ref(x, w, b, act=act)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        fail(f"conv {name}: kernel output not finite")
+    err = float((out - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    if not rel <= CONV_TOL:
+        fail(f"conv {name}: kernel disagrees with the plain version ({rel:.3e} > {CONV_TOL:g})")
+    return err, rel
+
+
+def read_rows(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "gennet_tpu_torch")):
         fail(f"no gennet_tpu_torch package beside {__file__}: run from a checkout")
@@ -95,6 +135,7 @@ def main():
     from gennet_tpu_torch import runtime
     from gennet_tpu_torch.data import template_bank as tb
     from gennet_tpu_torch.ops import _build
+    from gennet_tpu_torch.ops import conv1d as CV
     from gennet_tpu_torch.ops import phasor_dft as P
     from gennet_tpu_torch.physics import priors, psd as psd_mod
 
@@ -115,7 +156,7 @@ def main():
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.BUILD_SECONDS:.1f} s)")
     print(_build.BUILD_LOG.strip())
 
-    # ---- 3. kernel vs plain -----------------------------------------------
+    # ---- 3. phasor kernel vs plain ----------------------------------------
     g = torch.Generator(device=dev).manual_seed(0)
     for name, (B, K, T) in (("random", (8, 256, 128)), ("ragged", (3907, 2049, 128))):
         amp = torch.rand((B, K), generator=g, device=dev)
@@ -162,7 +203,65 @@ def main():
               f"kernel, plain); kernel {flops / (min(k_ms, k2) * 1e-3) / 1e12:.2f} TFLOP/s "
               f"[{card}]")
 
-    # ---- 4. the slice: train-bbh through the CLI --------------------------
+    # ---- 4. phasor VJP: the kernel path's Function vs plain autograd ------
+    vjp_err = 0.0
+    for tag, n in (("pass B", amp.shape[0]), ("B = 8", 8)):
+        a = amp[:n].detach().clone().requires_grad_()
+        ph = phase_b[:n].detach().clone().requires_grad_()
+        gy = torch.randn((n, Cb.shape[1]), generator=g, device=dev)
+        got = torch.autograd.grad(P.phasor_matmul(a, ph, Cb, Sb), (a, ph), gy)
+        ref = torch.autograd.grad(P.phasor_matmul_ref(a, ph, Cb, Sb), (a, ph), gy)
+        torch.cuda.synchronize()
+        for name, x, r in zip(("d_amp", "d_phase"), got, ref):
+            err = float((x - r).abs().max())
+            rel = err / float(r.abs().max())
+            vjp_err = max(vjp_err, err)
+            print(f"phasor VJP {tag} (B={n} K={a.shape[1]} T={Cb.shape[1]}) {name}: "
+                  f"max_abs_err={err:.3e} rel={rel:.3e} (limit {CONV_TOL:g})")
+            if not (bool(torch.isfinite(x).all()) and rel <= CONV_TOL):
+                fail(f"phasor VJP {tag} {name}: kernel path disagrees with plain autograd")
+
+    # ---- 5. conv kernel vs plain (F.conv1d through cuDNN, TF32 off) --------
+    torch.backends.cudnn.allow_tf32 = False
+    conv_err, conv_times = 0.0, {}
+    for name, L, cin, cout in CONV_LAYERS:
+        for what, B, ci, co in (("fwd", 8, cin, cout), ("fwd", 256, cin, cout),
+                                ("dx", 8, cout, cin)):
+            x = torch.randn((B, ci, L), generator=g, device=dev)
+            w = torch.randn((co, ci, 5), generator=g, device=dev) / math.sqrt(5 * ci)
+            b = (torch.randn((co,), generator=g, device=dev) if what == "fwd"
+                 else torch.zeros((co,), device=dev))
+            err, rel = conv_compare(f"{name} {what} B={B}", x, w, b, "none", CV)
+            conv_err = max(conv_err, err)
+            # both against float64: equal errors mean the same float32 sums
+            r64 = CV.conv1d_same_ref(x.double(), w.double(), b.double())
+            e64 = [float((y.double() - r64).abs().max() / r64.abs().max())
+                   for y in (CV.conv1d_same(x, w, b), CV.conv1d_same_ref(x, w, b))]
+            del r64
+            k1 = cuda_ms(lambda: CV.conv1d_same(x, w, b))
+            p1 = cuda_ms(lambda: CV.conv1d_same_ref(x, w, b))
+            k2 = cuda_ms(lambda: CV.conv1d_same(x, w, b))
+            p2 = cuda_ms(lambda: CV.conv1d_same_ref(x, w, b))
+            conv_times[(name, what, B)] = (min(k1, k2), min(p1, p2))
+            flops = 2.0 * B * L * 5 * ci * co
+            print(f"conv {name} {what} (B={B} L={L} Cin={ci} Cout={co}): max_abs_err={err:.3e} "
+                  f"rel={rel:.3e} (limit {CONV_TOL:g}); vs float64: kernel {e64[0]:.2e}, plain "
+                  f"{e64[1]:.2e}; kernel {k1:.3f}/{k2:.3f} ms, plain "
+                  f"{p1:.3f}/{p2:.3f} ms (median of {N_TIMED}, order kernel, plain, kernel, "
+                  f"plain); kernel {flops / (min(k1, k2) * 1e-3) / 1e12:.2f} TFLOP/s, plain "
+                  f"{flops / (min(p1, p2) * 1e-3) / 1e12:.2f} TFLOP/s [{card}]")
+    _, L, cin, cout = CONV_LAYERS[3]  # every activation at G Conv_3's shape
+    x = torch.randn((8, cin, L), generator=g, device=dev)
+    w = torch.randn((cout, cin, 5), generator=g, device=dev) / math.sqrt(5 * cin)
+    b = torch.randn((cout,), generator=g, device=dev)
+    for act in ("none", "tanh", "leaky_relu", "relu"):
+        err, rel = conv_compare(f"G Conv_3 act={act}", x, w, b, act, CV)
+        conv_err = max(conv_err, err)
+        print(f"conv G Conv_3 act={act} (B=8): max_abs_err={err:.3e} rel={rel:.3e} "
+              f"(limit {CONV_TOL:g})")
+    del x, w, b
+
+    # ---- 6. slice 1: train-bbh through the CLI, default recipe -------------
     from gennet_tpu_torch.cli.main import main as cli_main
 
     build = os.path.join(REPO, "build")
@@ -173,12 +272,12 @@ def main():
                 "--training-num", str(training_num), "--pe-iters", "20", "--gan-iters", "20",
                 "--cadence", "10", "--pe-cadence", "10", "--eval-cadence", "10",
                 "--ckpt-every", "100000", "--plots", "false", "--out-dir", out_dir]
-        P.LAUNCHES = 0
+        P.LAUNCHES = CV.LAUNCHES = 0
         t0 = time.perf_counter()
         out = cli_main(argv)
         torch.cuda.synchronize()
         slice_s = time.perf_counter() - t0
-        launches = P.LAUNCHES
+        launches, conv_launches_1 = P.LAUNCHES, CV.LAUNCHES
     # synthesis calls of the run: bank batches of 4096, the event template
     # (make_event) and its twin (make_bank), grid chunks of 4096, the sanity
     # set; each synthesis launches the kernel three times (pass A twice, B once)
@@ -187,6 +286,8 @@ def main():
           f"(≥ {3 * n_synth} expected for {n_synth} syntheses)")
     if launches < 3 * n_synth:
         fail(f"the main path launched the kernel {launches} times, expected ≥ {3 * n_synth}")
+    if conv_launches_1 != 0:
+        fail(f"conv_impl xla launched the conv kernel {conv_launches_1} times")
     if out["final_step"] != 20:
         fail(f"final_step {out['final_step']} != 20")
     for key in ("beta", "grid_overlap"):
@@ -201,7 +302,61 @@ def main():
         "final_step", "beta", "grid_overlap", "cnn_sanity_beta", "beta_sanity", "pe_rms",
         "pe_std")}))
 
-    # ---- 5. throughput (information, warm, same process) -------------------
+    # ---- 7. slice 2: --conv-impl pallas and the posterior routes ----------
+    with tempfile.TemporaryDirectory(dir=build) as out_dir:
+        argv = ["train-bbh", "--device", "cuda", "--n-pix", str(n_pix),
+                "--training-num", str(training_num), "--pe-iters", "20", "--gan-iters", "20",
+                "--cadence", "10", "--pe-cadence", "10", "--eval-cadence", "10",
+                "--conv-impl", "pallas", "--pe-mlrc", "1", "--reweight-temper", "1.0",
+                "--select-best", "elbo", "--n-snapshots", "2",
+                "--ckpt-every", "100000", "--plots", "false", "--out-dir", out_dir]
+        P.LAUNCHES = CV.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out2 = cli_main(argv)
+        torch.cuda.synchronize()
+        slice2_s = time.perf_counter() - t0
+        phasor_launches, conv_launches = P.LAUNCHES, CV.LAUNCHES
+        rows = read_rows(os.path.join(out_dir, "bbh_metrics.jsonl"))
+    # conv kernel: every GAN iteration runs G forward twice (D step, G step)
+    # and D forward three times (real, fake, G step), 5 and 2 launches each
+    # (their backwards add dx launches on top); posterior draws run G in
+    # chunks of 256: 4000 draws at step 10, 2 snapshots × 2000 at step 20 and
+    # again for the final library draw
+    n_post = 4000
+    draw_chunks = math.ceil(n_post / 256) + 2 * 2 * math.ceil(max(n_post // 2, 256) / 256)
+    conv_expect = 20 * (2 * 5 + 3 * 2) + 5 * draw_chunks
+    # phasor kernel: the syntheses of slice 1, plus ≥ 300 Adam steps × 3
+    # launches in each of the 3 ml_recenter calls (two evals, the final draw)
+    phasor_expect = 3 * n_synth + 3 * 3 * 300
+    print(f"slice 2: train-bbh --conv-impl pallas with the posterior routes finished in "
+          f"{slice2_s:.1f} s; conv kernel launches {conv_launches} (≥ {conv_expect} expected: "
+          f"20 iterations × (2 G × 5 + 3 D × 2) forwards + {draw_chunks} draw chunks × 5), "
+          f"phasor kernel launches {phasor_launches} (≥ {phasor_expect} expected: "
+          f"3 × {n_synth} syntheses + 3 ml_recenter calls × 3 × 300)")
+    if conv_launches < conv_expect:
+        fail(f"slice 2 launched the conv kernel {conv_launches} times, expected ≥ {conv_expect}")
+    if phasor_launches < phasor_expect:
+        fail(f"slice 2 launched the phasor kernel {phasor_launches} times, "
+             f"expected ≥ {phasor_expect}")
+    if out2["final_step"] != 20:
+        fail(f"slice 2: final_step {out2['final_step']} != 20")
+    for key in ("beta", "grid_overlap"):
+        v = out2[key]
+        if not isinstance(v, float) or not 0.0 <= v <= 1.0:
+            fail(f"slice 2: {key} = {v!r}, expected a float in [0, 1]")
+    if not all(math.isfinite(x) for x in out2["pe_rms"]):
+        fail(f"slice 2: pe_rms not finite: {out2['pe_rms']}")
+    elbo_rows = [r for r in rows if "elbo" in r or "elbo_final" in r]
+    if not elbo_rows:
+        fail("slice 2: no elbo row in the metrics jsonl")
+    if out2["selected_route"] is None:
+        fail("slice 2: select_best=elbo selected no route")
+    print("slice 2 summary: " + json.dumps({k: out2[k] for k in (
+        "final_step", "beta", "grid_overlap", "beta_raw", "cnn_sanity_beta", "selected_route",
+        "selected_at", "plateau_k", "pool_ess", "pe_rms")}) + " elbo rows: "
+        + json.dumps(elbo_rows))
+
+    # ---- 8. throughput (information, warm, same process) -------------------
     from gennet_tpu_torch.models import BBHGenerator, DualBranchPE, PairDiscriminator
     from gennet_tpu_torch.train import cnn as tcnn
     from gennet_tpu_torch.train import gan as tgan
@@ -217,30 +372,67 @@ def main():
     pe = tcnn.init_cnn(torch.Generator().manual_seed(1), DualBranchPE(n_pix=n_pix), pe_cfg, dev)
     gan_cfg = tgan.GANConfig(n_pix=n_pix, label_smoothing=True, d_instance_noise=0.3,
                              d_lr_scale=0.5, d_acc_gate=0.9)
-    gs = tgan.init_gan(torch.Generator().manual_seed(2), BBHGenerator(n_out=n_pix),
-                       PairDiscriminator(n_pix=n_pix), gan_cfg, dev)
+    gans = {impl: tgan.init_gan(torch.Generator().manual_seed(2),
+                                BBHGenerator(n_out=n_pix, conv_impl=impl),
+                                PairDiscriminator(n_pix=n_pix, conv_impl=impl), gan_cfg, dev)
+            for impl in ("xla", "pallas")}
     measured = bank[-1] + torch.randn(n_pix, generator=g, device=dev)
-    rates = {}
-    for name, step in (("PE", lambda: tcnn.cnn_step(pe, bank, targets, g, cfg=pe_cfg)),
-                       ("GAN", lambda: tgan.gan_step(gs, bank, measured, g, cfg=gan_cfg))):
+
+    def steps_per_s(step, n=50):
         for _ in range(5):
             step()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(50):
+        for _ in range(n):
             step()
         torch.cuda.synchronize()
-        rates[name] = 50 / (time.perf_counter() - t0)
-    print(f"throughput: bank {bank_rate:.0f} templates/s (n_pix 1024, batches of 4096), "
-          f"PE {rates['PE']:.1f} steps/s (batch 8), GAN {rates['GAN']:.1f} steps/s (batch 8) "
-          f"[{card}]")
+        return n / (time.perf_counter() - t0)
 
+    pe_rate = steps_per_s(lambda: tcnn.cnn_step(pe, bank, targets, g, cfg=pe_cfg))
+    gan_rates = {"xla": [], "pallas": []}
+    for impl in ("xla", "pallas", "pallas", "xla"):
+        gan_rates[impl].append(steps_per_s(
+            lambda: tgan.gan_step(gans[impl], bank, measured, g, cfg=gan_cfg)))
+    # one ml_recenter call at the flagship geometry: 300 Adam steps through
+    # the synthesis of 8 starts, 3 phasor launches and one VJP per step
+    from gennet_tpu_torch.eval import posterior_post as pp
+
+    def synth(sm):
+        sm = torch.as_tensor(sm, dtype=torch.float32, device=dev)
+        m1s, m2s = priors.mc_q_to_m1m2(torch.clamp(sm[:, 0], 5.0, 60.0),
+                                       torch.clamp(sm[:, 1], 0.2, 1.0))
+        return tb.make_templates_from_params(m1s, m2s, psd, cfg)
+
+    rng = np.random.default_rng(0)
+    event = synth([[28.1, 0.8]])[0] + torch.randn(cfg.n_out, generator=g, device=dev)
+    cloud = np.column_stack([rng.normal(28.5, 0.5, 4000), rng.uniform(0.6, 0.95, 4000)])
+    P.LAUNCHES = 0
+    t0 = time.perf_counter()
+    pp.ml_recenter(cloud, synth, event, g)
+    torch.cuda.synchronize()
+    mlrc_s, mlrc_launches = time.perf_counter() - t0, P.LAUNCHES
+    fmt = lambda r: "/".join(f"{x:.1f}" for x in r)
+    print(f"throughput: bank {bank_rate:.0f} templates/s (n_pix 1024, batches of 4096), "
+          f"PE {pe_rate:.1f} steps/s (batch 8), GAN steps/s (batch 8, 50 steps each, order "
+          f"xla, pallas, pallas, xla): xla {fmt(gan_rates['xla'])}, pallas "
+          f"{fmt(gan_rates['pallas'])}; ml_recenter (300 steps, 8 starts, n_pix 1024) "
+          f"{mlrc_s:.2f} s, {mlrc_launches} phasor launches [{card}]")
+
+    # launches: slice 2, the path that runs both kernels; times: pass B and
+    # G Conv_4's forward at batch 8, the largest call of each on the train path
     k_ms, p_ms = times["pass B"]
+    ck_ms, cp_ms = conv_times[("G Conv_4", "fwd", 8)]
     print(json.dumps({"kernels": [{
         "name": "phasor_irdft_f32", "route": "cuda",
         "source": "gennet_tpu_torch/csrc/phasor_irdft.cu",
         "replaces": "gennet_tpu/ops/phasor_dft.py:25",
-        "launches": launches, "max_abs_err": max(err_a, err_b), "ms": k_ms, "plain_ms": p_ms,
+        "launches": phasor_launches, "max_abs_err": max(err_a, err_b), "ms": k_ms,
+        "plain_ms": p_ms,
+    }, {
+        "name": "conv1d_same_f32", "route": "cuda",
+        "source": "gennet_tpu_torch/csrc/conv1d_same.cu",
+        "replaces": "gennet_tpu/ops/pallas_conv1d.py:50",
+        "launches": conv_launches, "max_abs_err": conv_err, "ms": ck_ms, "plain_ms": cp_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

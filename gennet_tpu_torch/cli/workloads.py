@@ -3,8 +3,11 @@
 
 Synthetic GW150914-like event → 50k-template whitened bank → exact (mc, q)
 grid posterior and CNN sanity set → CNN point-estimator training → pair-GAN
-training → posterior draws (G → CNN) scored by β overlap, grid overlap and
-residual whiteness at each eval cadence and at the end.
+training → posterior draws (G → CNN, pooled over ``n_snapshots`` states),
+optionally post-processed by the truth-free routes of
+:mod:`gennet_tpu_torch.eval.posterior_post`, scored by β overlap, grid
+overlap, residual whiteness (and ELBO) at each eval cadence and at the
+end, with an ELBO-selected final cloud under ``select_best="elbo"``.
 
 ``BBHConfig`` keeps every field and default of the JAX config, so the flags
 are identical. Options this port does not implement yet raise
@@ -12,9 +15,12 @@ are identical. Options this port does not implement yet raise
 defaults; none is silently ignored.
 """
 
+import copy
 import dataclasses
+import glob
 import json
 import os
+from collections import deque
 from dataclasses import dataclass
 
 import numpy as np
@@ -23,6 +29,7 @@ import torch
 from gennet_tpu_torch.data import template_bank as tb
 from gennet_tpu_torch.eval import grid_posterior as gp
 from gennet_tpu_torch.eval import overlap as ov
+from gennet_tpu_torch.eval import posterior_post as pp
 from gennet_tpu_torch.eval.whiteness import posterior_whiteness
 from gennet_tpu_torch.models import BBHGenerator, DualBranchPE, PairDiscriminator
 from gennet_tpu_torch.physics import priors
@@ -30,7 +37,7 @@ from gennet_tpu_torch.physics import psd as psd_mod
 from gennet_tpu_torch.train.checkpoints import CheckpointManager, save_posterior_snapshot
 from gennet_tpu_torch.train.cnn import CNNConfig, cnn_step, init_cnn
 from gennet_tpu_torch.train.cnn import predict as cnn_predict
-from gennet_tpu_torch.train.gan import GANConfig, gan_step, init_gan, sample_generator
+from gennet_tpu_torch.train.gan import GANConfig, GANState, gan_step, init_gan, sample_generator
 from gennet_tpu_torch.train.metrics import MetricLogger, fetch_metrics
 
 
@@ -102,18 +109,10 @@ class BBHConfig:
 
 # field → ROADMAP item of the port that brings it
 _UNPORTED = {
-    "select_best": "queue 1 #8 (posterior_post)",
-    "select_route": "queue 1 #8 (posterior_post)",
-    "pe_debias": "queue 1 #8 (posterior_post)",
-    "pe_bootcal": "queue 1 #8 (posterior_post)",
-    "pe_mlrc": "queue 1 #8 (posterior_post, phasor VJP)",
-    "reweight_temper": "queue 1 #8 (posterior_post)",
-    "n_snapshots": "queue 1 #8 (snapshot pooling)",
     "lalinf_dir": "queue 1 #12 (data interop)",
     "bank_file": "queue 1 #12 (data interop)",
     "cnn_cache": "queue 1 #7 (restore)",
     "resume": "queue 1 #7 (restore)",
-    "conv_impl": "queue 2 #2 (conv1d_same kernel)",
     "bf16": "queue 1 #4 (reduced precision)",
     "comb_pe_model": "queue 1 #4 (CombinedPE)",
     "g_norm": "queue 1 #4 (group/none norm)",
@@ -131,9 +130,16 @@ _UNPORTED = {
 
 
 def check_ported(cfg: BBHConfig):
-    """Raise NotImplementedError for any option set away from its default
-    that this port does not implement yet, and for ``plots=True`` (plots
-    are not ported; pass ``--plots false``)."""
+    """Raise ValueError for option values the reference refuses too, and
+    NotImplementedError for any option set away from its default that this
+    port does not implement yet, and for ``plots=True`` (plots are not
+    ported; pass ``--plots false``)."""
+    if cfg.conv_impl not in ("xla", "pallas"):
+        raise ValueError(f"conv_impl={cfg.conv_impl!r}: must be 'xla' or 'pallas'")
+    for name in ("select_best", "select_route"):
+        if getattr(cfg, name) not in ("", "elbo"):
+            # a typo would silently fall back to the default semantics (ref :1233-1240)
+            raise ValueError(f"{name}={getattr(cfg, name)!r}: must be '' or 'elbo'")
     defaults = BBHConfig()
     off = [f"{k} (ROADMAP {item})" for k, item in _UNPORTED.items()
            if getattr(cfg, k) != getattr(defaults, k)]
@@ -268,38 +274,97 @@ def run_bbh(cfg: BBHConfig, *, device):
                         label_smoothing=cfg.label_smoothing, d_instance_noise=inoise,
                         d_lr_scale=cfg.d_lr_scale, d_acc_gate=cfg.d_acc_gate,
                         g_ema_decay=cfg.g_ema_decay)
-    G = BBHGenerator(n_out=cfg.n_pix, norm=cfg.g_norm)
-    D = PairDiscriminator(n_pix=cfg.n_pix)
+    G = BBHGenerator(n_out=cfg.n_pix, norm=cfg.g_norm, conv_impl=cfg.conv_impl)
+    D = PairDiscriminator(n_pix=cfg.n_pix, conv_impl=cfg.conv_impl)
     gan_state = init_gan(torch.Generator().manual_seed(cfg.seed + 2), G, D, gan_cfg, device)
     gan_ckpt = CheckpointManager(os.path.join(cfg.out_dir, "ckpt_gan"))
     if cfg.posterior_drate >= 0.0:
-        G_samp = BBHGenerator(n_out=cfg.n_pix, drate=cfg.posterior_drate).to(device)
+        G_samp = BBHGenerator(n_out=cfg.n_pix, drate=cfg.posterior_drate,
+                              conv_impl=cfg.conv_impl).to(device)
         samp_dropout = True
     else:
         G_samp, samp_dropout = G, cfg.posterior_dropout
+    # the port updates states in place, so a pooled snapshot is a copy of
+    # what sampling reads (G's weights and buffers, its EMA), on the device
+    snapshots = deque(maxlen=max(1, cfg.n_snapshots))
 
-    def draw_posterior(state):
-        wf = sample_generator(G_samp, state, gen, cfg.n_posterior, gan_cfg,
-                              dropout=samp_dropout, temp=cfg.posterior_temp,
-                              bn_mode=cfg.posterior_bn_mode)
+    def snapshot(state):
+        return GANState(generator=copy.deepcopy(state.generator), discriminator=None,
+                        g_opt=None, d_opt=None, g_res_opt=None,
+                        g_ema=copy.deepcopy(state.g_ema), step=state.step)
+
+    def synth(sm):
+        # clip to where the PhenomD fits are sane (the hunt_constrain prior is
+        # mc 20-35, q >= 0.5; ML refinement's Adam can wander to the corners)
+        sm = torch.as_tensor(sm, dtype=torch.float32, device=device)
+        m1s, m2s = priors.mc_q_to_m1m2(torch.clamp(sm[:, 0], 5.0, 60.0),
+                                       torch.clamp(sm[:, 1], 0.2, 1.0))
+        return tb.make_templates_from_params(m1s, m2s, psd, bank_cfg, norm)
+
+    def cnn(w):
+        return cnn_predict(pe_state, w, use_ema=pe_use_ema)
+
+    def draw_posterior(states):
+        per = cfg.n_posterior if len(states) == 1 else max(cfg.n_posterior // len(states), 256)
+        wf = torch.cat([sample_generator(G_samp, snap, gen, per, gan_cfg, dropout=samp_dropout,
+                                         temp=cfg.posterior_temp, bn_mode=cfg.posterior_bn_mode)
+                        for snap in states])
         wf_in = wf
         if cfg.posterior_noise > 0:
             # parametric bootstrap through the noise-augmented CNN
             wf_in = wf + cfg.posterior_noise * n_sig_eff * torch.randn(
                 wf.shape, generator=gen, device=gen.device)
-        samples = cnn_predict(pe_state, wf_in, use_ema=pe_use_ema).cpu().numpy()
-        return wf, samples
+        samples = cnn(wf_in).cpu().numpy()
+        samples_raw = samples
+        route_elbo = None  # select_route's score for the returned cloud
+        if cfg.select_route == "elbo":
+            route, samples, scores = pp.select_route(
+                samples, synth, cnn, measured, n_sig_eff, gen,
+                temper=cfg.reweight_temper if cfg.reweight_temper > 0 else 1.0)
+            route_elbo = scores[route]
+            print(f"auto route: {route} (ELBO {route_elbo:.1f})")
+        else:
+            if cfg.pe_debias > 0:
+                samples = pp.self_calibrate(samples, synth, cnn, gen, n_sig_eff,
+                                            rounds=cfg.pe_debias)
+            if cfg.pe_bootcal > 0:
+                samples = pp.bootstrap_calibrate(samples, synth, cnn, gen, n_sig_eff)
+            if cfg.pe_mlrc > 0:
+                samples = pp.ml_recenter(samples, synth, measured, gen)
+            if cfg.reweight_temper > 0:
+                ess = pp.effective_sample_size(samples, synth, measured, n_sig_eff,
+                                               cfg.reweight_temper)
+                samples = pp.likelihood_resample(samples, synth, measured, n_sig_eff, gen,
+                                                 temper=cfg.reweight_temper)
+                print(f"likelihood resample ESS: {ess:.1f}/{len(samples)}")
+        return wf, samples, samples_raw, route_elbo
 
-    def eval_posterior(state, step, tag=None):
-        """Posterior draw → CNN → β / grid overlap / whiteness."""
-        wf, samples = draw_posterior(state)
+    def eval_posterior(states, step, tag=None, cloud_override=None):
+        """Posterior draw → CNN → post-processing → β / grid overlap /
+        whiteness (/ ELBO). ``cloud_override`` scores that cloud instead of
+        a fresh draw (the library-selected final product); its waveforms
+        are synthesized from its parameters."""
+        if cloud_override is not None:
+            samples = samples_raw = np.asarray(cloud_override)
+            wf = synth(samples[:256])
+            route_elbo = None
+        else:
+            wf, samples, samples_raw, route_elbo = draw_posterior(states)
+        raw_row = {}
+        if samples_raw is not samples and ref_samples is not None:
+            # post-processing active: keep the untransformed cloud's score
+            if samples_raw[:, 0].var() > 0:
+                raw_row = {"beta_raw": ov.beta_overlap(samples_raw, ref_samples)}
+                if grid is not None:
+                    raw_row["grid_overlap_raw"] = gp.grid_overlap_score(samples_raw, *grid)
+            log.log(step, raw_row)
         save_posterior_snapshot(os.path.join(cfg.out_dir, "GAN_posterior_samples"),
                                 step + 1 if tag == "final" else step, samples)
         # whiteness of the posterior-MEAN waveform's residual
         ws = posterior_whiteness(measured.cpu().numpy(), wf[:256].cpu().numpy(), n_sig_eff)
         w_score = (ws["mean_pass"] + ws["var_pass"] + ws["ljung_box_pass"]) / 3.0
         out = {"whiteness": w_score, "ws": ws, "wf": wf, "samples": samples,
-               "beta": None, "grid_overlap": None}
+               "beta": None, "grid_overlap": None, **raw_row}
         if grid is not None:
             gm = gp.grid_moments(*grid)
             log.log(step, {
@@ -319,7 +384,15 @@ def run_bbh(cfg: BBHConfig, *, device):
                 # degenerate cloud (ref guard: bbhMahoGANy.py:1354-1355)
                 out["beta"] = 0.0
                 out["grid_overlap"] = 0.0 if grid is not None else None
-        row = {k: out[k] for k in ("whiteness", "beta", "beta_sanity", "grid_overlap")
+        if cfg.select_best == "elbo" and samples[:, 0].var() > 0 and samples[:, 1].var() > 0:
+            # a collapsed cloud is never selectable; non-finite scores stay
+            # out of the log; select_route's score is reused for its cloud
+            elbo = route_elbo if route_elbo is not None else \
+                pp.elbo_score(samples, synth, measured, n_sig_eff)
+            print(f"cloud ELBO: {elbo:.1f}")
+            if np.isfinite(elbo):
+                out["elbo"] = elbo
+        row = {k: out[k] for k in ("whiteness", "beta", "beta_sanity", "grid_overlap", "elbo")
                if out.get(k) is not None}
         log.log(step, row if tag is None else {f"{k}_{tag}": v for k, v in row.items()})
         return out
@@ -327,6 +400,7 @@ def run_bbh(cfg: BBHConfig, *, device):
     gan_bank = gan_real_bank(cfg, bank, signal)
     beta_hist = []
     best_white, best_state_dict = -1.0, None
+    sel_score, sel_step = float("-inf"), None
     log.steps_per_sec(0)  # reset the steps/sec window for the GAN phase
     for i in range(1, cfg.gan_iters + 1):  # i counts completed iterations
         gan_state, m = gan_step(gan_state, gan_bank, measured, gen, cfg=gan_cfg)
@@ -335,11 +409,14 @@ def run_bbh(cfg: BBHConfig, *, device):
             log.log(i, mh)
             print(log.status_line(i, mh, log.steps_per_sec(i)))
         if i % cfg.eval_cadence == 0:
-            ev = eval_posterior(gan_state, i)
+            snapshots.append(snapshot(gan_state))
+            ev = eval_posterior(list(snapshots), i)
             if ev["whiteness"] > best_white:
                 best_white = ev["whiteness"]
                 best_state_dict = {"step": i, "generator": {k: v.clone() for k, v in
                                                             gan_state.generator.state_dict().items()}}
+            if ev.get("elbo", float("-inf")) > sel_score:
+                sel_score, sel_step = ev["elbo"], i
             if ev["beta"] is not None:
                 beta_hist.append(ev["beta"])
                 print(f"beta result: {ev['beta']}" +
@@ -352,11 +429,45 @@ def run_bbh(cfg: BBHConfig, *, device):
     # ---- final-state artefacts (the reference uses the last iteration's
     # state, ref: :1241); the best-whiteness generator is kept as a diagnostic
     whiteness = beta_final = grid_overlap_final = beta_sanity_final = None
+    beta_raw_final = grid_overlap_raw_final = None
+    sel_route_name, sel_info = None, None
     if cfg.gan_iters > 0:
-        ev = eval_posterior(gan_state, cfg.gan_iters, tag="final")
+        final_states = [gan_state]
+        if cfg.n_snapshots > 1:
+            # the pooled snapshots, plus the final state unless the last eval took it
+            final_states = list(snapshots) + (
+                [] if snapshots and snapshots[-1].step == gan_state.step else [gan_state])
+        cloud_override = None
+        if cfg.select_best == "elbo":
+            # candidate-library selection over the saved per-eval clouds and
+            # the trained-final cloud (ref :1697-1733), truth-free
+            _, samples_f, _, _ = draw_posterior(final_states)
+            lib = {}
+            for path in glob.glob(os.path.join(cfg.out_dir, "GAN_posterior_samples",
+                                               "posterior_samples_*.npz")):
+                st = int(path.rsplit("_", 1)[1].split(".")[0])
+                if st <= cfg.gan_iters:  # skip a previous run's final (+1)
+                    lib[st] = np.load(path)["samples"]
+            sel_route_name, chosen, sel_info = pp.select_final_cloud(
+                lib, synth, measured, n_sig_eff, gen, extra={"final": np.asarray(samples_f)},
+                # search-window prior: the exact grid's parameter box
+                bounds=((20.0, 35.0), (0.5, 1.0)))
+            if sel_info:
+                print(f"library-selected posterior: {sel_route_name} (scores {{"
+                      + ", ".join(f"{k}: {v:.1f}" for k, v in sel_info["scores"].items())
+                      + f"}}, plateau K={len(sel_info.get('plateau_members', []))}, "
+                      f"pool ESS {sel_info.get('pool_ess', 0.0):.0f})")
+            if chosen is not None:
+                cloud_override = np.asarray(chosen)
+        ev = eval_posterior(final_states, cfg.gan_iters, tag="final",
+                            cloud_override=cloud_override)
         whiteness, beta_final = ev["ws"], ev["beta"]
         grid_overlap_final = ev["grid_overlap"]
         beta_sanity_final = ev.get("beta_sanity")
+        # null under select_best="elbo": the override cloud is its own raw
+        # cloud, as in the reference (ROADMAP queue 3, reproduced)
+        beta_raw_final = ev.get("beta_raw")
+        grid_overlap_raw_final = ev.get("grid_overlap_raw")
         print(f"final-state residual whiteness: {whiteness}")
         if beta_final is not None:
             print(f"final-state beta: {beta_final:.4f}" +
@@ -370,18 +481,18 @@ def run_bbh(cfg: BBHConfig, *, device):
     log.close()
     return {
         "beta": beta_final,
-        "beta_raw": None,
-        "grid_overlap_raw": None,
+        "beta_raw": beta_raw_final,
+        "grid_overlap_raw": grid_overlap_raw_final,
         "beta_sanity": beta_sanity_final,
         "beta_hist_last": beta_hist[-1] if beta_hist else None,
         "grid_overlap": grid_overlap_final,
         "cnn_sanity_beta": cnn_sanity_beta,
         "final_step": int(gan_state.step),
         "frozen_at": None,
-        "selected_at": None,
-        "selected_route": None,
-        "pool_ess": None,
-        "plateau_k": None,
+        "selected_at": sel_step,                 # in-run ELBO argmax (diagnostic)
+        "selected_route": sel_route_name,        # library candidate chosen
+        "pool_ess": (sel_info or {}).get("pool_ess"),
+        "plateau_k": len((sel_info or {}).get("plateau_members", [])) or None,
         "whiteness": whiteness,
         "pe_rms": pe_rms,
         "pe_std": pe_std,

@@ -5,8 +5,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from gennet_tpu_torch.models.layers import (BatchNorm, Conv1d, Dense, activation, dropout,
-                                            upsample1d)
+from gennet_tpu_torch.models.layers import (BatchNorm, Conv1d, Dense, activation, conv1d_layer,
+                                            dropout, upsample1d)
 
 
 class BBHGenerator(nn.Module):
@@ -20,12 +20,16 @@ class BBHGenerator(nn.Module):
     → Conv(1, 5) linear → (B, n, 1)
 
     BN_0 acts on the flat 256·n/2 Dense features before the reshape, as in
-    the JAX module. Only ``norm="batch"`` is ported.
+    the JAX module. Only ``norm="batch"`` is ported. ``conv_impl`` picks
+    Conv_0..n−1's implementation (``"xla"``: cuDNN, ``"pallas"``: the port's
+    conv1d kernel); the 1-channel output conv is always :class:`Conv1d`, as
+    in the JAX module. Parameters are the same under both.
     """
 
     def __init__(self, n_out: int = 1024, latent_dim: int = 100, filt: int = 5,
                  act: str = "tanh", drate: float = 0.2, bn_momentum: float = 0.99,
-                 features: Sequence[int] = (64, 128, 256, 512, 1024), norm: str = "batch"):
+                 features: Sequence[int] = (64, 128, 256, 512, 1024), norm: str = "batch",
+                 conv_impl: str = "xla"):
         super().__init__()
         if norm != "batch":
             raise NotImplementedError(f"BBHGenerator norm={norm!r}: only 'batch' is ported "
@@ -37,7 +41,7 @@ class BBHGenerator(nn.Module):
         self.convs = nn.ModuleList()
         cin = 256
         for i, feat in enumerate(features):
-            self.convs.append(Conv1d(cin, feat, filt, stride=2 if i == 0 else 1))
+            self.convs.append(conv1d_layer(conv_impl, cin, feat, filt, stride=2 if i == 0 else 1))
             self.norms.append(BatchNorm(feat, bn_momentum))
             cin = feat
         self.out_conv = Conv1d(cin, 1, filt)

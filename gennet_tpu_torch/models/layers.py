@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gennet_tpu_torch.ops import conv1d as conv1d_ops
+
 # std of a unit normal truncated to [−2, 2]; flax divides by it so the
 # truncated draw keeps the requested variance
 _TRUNC_STD = 0.87962566103423978
@@ -64,6 +66,37 @@ class Conv1d(nn.Module):
             pad_total = max((out_len - 1) * s + K - L, 0)
             x = F.pad(x, (pad_total // 2, pad_total - pad_total // 2))
         return F.conv1d(x, self.weight, self.bias, stride=self.stride)
+
+
+class PallasConv1d(Conv1d):
+    """SAME 1-D convolution through the port's conv1d kernel (port of
+    ``PallasConv1D``): :class:`~gennet_tpu_torch.ops.conv1d.Conv1dTrain`
+    at stride 1, the stride-s output sampled from it. Its parameters are
+    :class:`Conv1d`'s (weight (Cout, Cin, K), bias), so converted weights
+    and saved ``state_dict``s work under either implementation. Linear
+    output, as with :class:`Conv1d`."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 1):
+        super().__init__(in_ch, out_ch, kernel_size, stride, padding="SAME")
+
+    def forward(self, x):
+        y = conv1d_ops.conv1d_train(x, self.weight, self.bias)
+        if self.stride == 1:
+            return y
+        off, out_len = conv1d_ops.stride_offset(x.shape[-1], self.kernel_size, self.stride)
+        return y[:, :, off::self.stride][:, :, :out_len]
+
+
+def conv1d_layer(impl: str, in_ch: int, out_ch: int, kernel_size: int = 5,
+                 stride: int = 1) -> Conv1d:
+    """The conv implementation of the models' hot layers: ``"xla"`` →
+    :class:`Conv1d` (cuDNN), ``"pallas"`` → :class:`PallasConv1d` (the
+    port's kernel). The names are the JAX package's ``conv_impl`` values."""
+    if impl == "pallas":
+        return PallasConv1d(in_ch, out_ch, kernel_size, stride)
+    if impl == "xla":
+        return Conv1d(in_ch, out_ch, kernel_size, stride)
+    raise ValueError(f"conv_impl must be 'xla' or 'pallas', got {impl!r}")
 
 
 class BatchNorm(nn.Module):

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Every ``*.cu`` file under ``gennet_tpu_torch/csrc/`` is compiled with
-``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
-interface, loaded with ``ctypes``. The library lives under
+``nvcc`` for Hopper (``sm_90a``), one process per file, all started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with ``ctypes``. The library lives under
 ``build/gennet_tpu_torch/`` at the repository root and is keyed by a hash
 of the sources and flags, so an edit forces a rebuild and an unchanged
 tree reuses the last build. Nothing is built when this module is imported.
@@ -20,7 +21,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "gennet_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIB = None
 BUILD_LOG = ""          # nvcc's output (ptxas register/shared-memory report)
@@ -57,18 +58,36 @@ def load() -> ctypes.CDLL:
     lib_path = BUILD_DIR / f"libgennet_kernels_{_digest()}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        tag = f"{os.getpid()}.tmp"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+        tmp = lib_path.with_suffix(f".{tag}")
+        nvcc = _nvcc()
         t0 = time.perf_counter()
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [f"{src.name}:\n{proc.communicate()[0]}" for src, proc in zip(sources, procs)]
+        BUILD_LOG = "\n".join(logs)
+        failed = [src.name for src, proc in zip(sources, procs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}\n{BUILD_LOG}")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         BUILD_SECONDS = time.perf_counter() - t0
-        BUILD_LOG = proc.stdout + proc.stderr
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{BUILD_LOG}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees half a file
     lib = ctypes.CDLL(str(lib_path))
     lib.phasor_irdft_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.phasor_irdft_f32.restype = ctypes.c_int
+    lib.conv1d_same_f32.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                                    + [ctypes.c_float, ctypes.c_void_p])
+    lib.conv1d_same_f32.restype = ctypes.c_int
+    lib.conv1d_same_max_cin.argtypes = [ctypes.c_int]
+    lib.conv1d_same_max_cin.restype = ctypes.c_int
     lib.gennet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.gennet_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib

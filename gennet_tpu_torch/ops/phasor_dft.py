@@ -12,6 +12,10 @@ Pallas kernel), which never writes the (B, K) phasor to device memory. On a
 CPU tensor it runs :func:`phasor_matmul_ref`, the plain version, which the
 tests and the on-card comparison also use. There is no fallback from one to
 the other: a CUDA tensor launches the kernel or raises.
+
+On every device the op is differentiable through :class:`PhasorMatmul`,
+the port of the JAX package's closed-form custom VJP (``_phasor_bwd``):
+the backward is plain matmuls around the forward's inputs, as there.
 """
 
 import torch
@@ -49,15 +53,9 @@ def _check(amp, phase, cos_t, sin_t):
                          f"do not match amp {tuple(amp.shape)}")
 
 
-def phasor_matmul(amp: torch.Tensor, phase: torch.Tensor, cos_t: torch.Tensor,
-                  sin_t: torch.Tensor) -> torch.Tensor:
-    """out[b,t] = Σ_k amp·cos(phase)·cos_t + amp·sin(phase)·sin_t.
-
-    amp/phase (B, K), cos_t/sin_t (K, T), all float32 and contiguous on one
-    device; any B, K, T (the kernel masks ragged edges). Forward only.
-    """
+def _forward(amp, phase, cos_t, sin_t):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
     global LAUNCHES
-    _check(amp, phase, cos_t, sin_t)
     if amp.device.type == "cpu":
         return phasor_matmul_ref(amp, phase, cos_t, sin_t)
     if amp.device.type != "cuda":
@@ -77,6 +75,53 @@ def phasor_matmul(amp: torch.Tensor, phase: torch.Tensor, cos_t: torch.Tensor,
         raise RuntimeError(f"phasor_irdft_f32 launch failed ({rc}: {msg}) at B={B} K={K} T={T}")
     LAUNCHES += 1
     return out
+
+
+class PhasorMatmul(torch.autograd.Function):
+    """Forward: :func:`_forward`. Backward, the closed form of
+    ``gennet_tpu.ops.phasor_dft._phasor_bwd`` (out is linear in
+    (amp·cosΨ, amp·sinΨ)), with gc = g Cᵀ and gs = g Sᵀ:
+
+        ∂/∂amp = cosΨ·gc + sinΨ·gs,     ∂/∂Ψ = amp·(cosΨ·gs − sinΨ·gc),
+        ∂/∂C = (amp·cosΨ)ᵀ g,           ∂/∂S = (amp·sinΨ)ᵀ g.
+
+    The (B, K) intermediates it materialises are what the forward kernel
+    avoids; the backward runs only where a gradient is asked for
+    (``posterior_post.ml_recenter``)."""
+
+    @staticmethod
+    def forward(ctx, amp, phase, cos_t, sin_t):
+        ctx.save_for_backward(amp, phase, cos_t, sin_t)
+        return _forward(amp, phase, cos_t, sin_t)
+
+    @staticmethod
+    def backward(ctx, g):
+        amp, phase, cos_t, sin_t = ctx.saved_tensors
+        g = g.contiguous()
+        cos_p, sin_p = torch.cos(phase), torch.sin(phase)
+        d_amp = d_phase = d_cos = d_sin = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            gc = g @ cos_t.T
+            gs = g @ sin_t.T
+            d_amp = cos_p * gc + sin_p * gs
+            d_phase = amp * (cos_p * gs - sin_p * gc)
+        if ctx.needs_input_grad[2]:
+            d_cos = (amp * cos_p).T @ g
+        if ctx.needs_input_grad[3]:
+            d_sin = (amp * sin_p).T @ g
+        return d_amp, d_phase, d_cos, d_sin
+
+
+def phasor_matmul(amp: torch.Tensor, phase: torch.Tensor, cos_t: torch.Tensor,
+                  sin_t: torch.Tensor) -> torch.Tensor:
+    """out[b,t] = Σ_k amp·cos(phase)·cos_t + amp·sin(phase)·sin_t.
+
+    amp/phase (B, K), cos_t/sin_t (K, T), all float32 and contiguous on one
+    device; any B, K, T (the kernel masks ragged edges). Differentiable
+    with respect to all four through :class:`PhasorMatmul`.
+    """
+    _check(amp, phase, cos_t, sin_t)
+    return PhasorMatmul.apply(amp, phase, cos_t, sin_t)
 
 
 def slice_tables(N: int, start: int, width: int, weights: tuple | None, device) -> tuple:

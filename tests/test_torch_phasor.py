@@ -41,6 +41,42 @@ def test_plain_matches_pallas_interpret():
     np.testing.assert_allclose(out, ref, rtol=2e-4, atol=2e-4)
 
 
+def test_grads_match_jax_custom_vjp():
+    # the CPU runs the same autograd.Function as the card: its closed-form
+    # backward must match JAX's custom VJP (rtol/atol 2e-4 after scaling,
+    # the forward's tolerance)
+    jnp, _, jp = _jax()
+    import jax
+
+    B, K, T = 8, 256, 128
+    amp, ph = _rand((B, K), 10, True), _rand((B, K), 11)
+    C, S = _rand((K, T), 12) / 16, _rand((K, T), 13) / 16
+    wgt = _rand((B, T), 14)
+
+    def loss_j(a, p, c, s):
+        out = jp.phasor_matmul(a, p, c, s, bm=8, bk=128, bt=128, interpret=True)
+        return jnp.sum(jnp.sin(out) * wgt)
+
+    ref = jax.grad(loss_j, argnums=(0, 1, 2, 3))(*map(jnp.asarray, (amp, ph, C, S)))
+    args = [torch.tensor(a, requires_grad=True) for a in (amp, ph, C, S)]
+    out = P.phasor_matmul(*args)
+    assert type(out.grad_fn).__name__ == "PhasorMatmulBackward"
+    torch.sum(torch.sin(out) * torch.tensor(wgt)).backward()
+    for name, a, r in zip(("amp", "phase", "cos", "sin"), args, ref):
+        r = np.asarray(r)
+        scale = np.abs(r).max()
+        np.testing.assert_allclose(a.grad.numpy() / scale, r / scale, rtol=2e-4, atol=2e-4,
+                                   err_msg=name)
+
+
+def test_backward_skips_grads_nobody_asked_for():
+    amp, ph = torch.rand(3, 5, requires_grad=True), torch.zeros(3, 5)
+    C, S = torch.ones(5, 4), torch.ones(5, 4)
+    P.phasor_matmul(amp, ph, C, S).sum().backward()
+    assert amp.grad is not None and ph.grad is None and C.grad is None
+    torch.testing.assert_close(amp.grad, torch.full((3, 5), 4.0))
+
+
 def _slice_inputs(B, N, pad_to=None, seed=1):
     rng = np.random.default_rng(seed)
     nf = N // 2 + 1
@@ -134,6 +170,27 @@ def test_kernel_matches_plain_on_card(B, K, T):
     assert P.LAUNCHES == before + 1
     ref = P.phasor_matmul_ref(amp, ph, C, S)
     assert float((out - ref).abs().max() / ref.abs().max()) <= 2e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,K,T", [(8, 2049, 1024), (4096, 2049, 1024)])
+def test_vjp_on_card_matches_plain_autograd(B, K, T):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the phasor kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(1)
+    amp = torch.rand((B, K), generator=g, device="cuda").requires_grad_()
+    ph = (1e3 * torch.randn((B, K), generator=g, device="cuda")).requires_grad_()
+    C = torch.randn((K, T), generator=g, device="cuda") / K
+    S = torch.randn((K, T), generator=g, device="cuda") / K
+    dy = torch.randn((B, T), generator=g, device="cuda")
+    before = P.LAUNCHES
+    out = P.phasor_matmul(amp, ph, C, S)
+    assert P.LAUNCHES == before + 1 and type(out.grad_fn).__name__ == "PhasorMatmulBackward"
+    got = torch.autograd.grad(out, (amp, ph), dy)
+    ref = torch.autograd.grad(P.phasor_matmul_ref(amp, ph, C, S), (amp, ph), dy)
+    for a, r in zip(got, ref):
+        assert float((a - r).abs().max() / r.abs().max()) <= 1e-4
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
