@@ -11,14 +11,20 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    (one nvcc per source, started together);
 3. phasor kernel: the phasor → iDFT kernel against its plain PyTorch
    version on random inputs and at the bank's real pass-A and pass-B
-   shapes (max|kernel − plain| / max|plain| ≤ 2e-5), with CUDA-event times;
+   shapes (max|kernel − plain| / max|plain| ≤ 2e-5), the pass-A peak
+   index (≤ 1/64 of rows may move), both against float64 at pass B, two
+   calls bitwise equal, with CUDA-event times (also at ``ml_recenter``'s
+   B = 8);
 4. phasor VJP: d_amp and d_phase through the kernel path's autograd
    Function against autograd through the plain version, at pass B and at
    B = 8 (≤ 1e-4·max);
 5. conv kernel: the conv1d kernel against its plain version
-   (``F.conv1d``, TF32 off) at the flagship's seven conv shapes, forward at
-   batch 8 and 256 and dx at batch 8, and every activation at G Conv_3's
-   shape (≤ 1e-4·max), with CUDA-event times;
+   (``F.conv1d``, TF32 off; the strided layers through ``Conv1d``, flax
+   padding) at the flagship's seven conv shapes, forward at batch 8 and
+   256 (G Conv_0, D Conv_0 and D Conv_1 at their native stride 2) and dx
+   at batch 8, every activation at G Conv_3's and G Conv_0's shapes, and
+   Cin 2048 (≤ 1e-4·max against plain, ≤ 1e-5·max against float64), two
+   calls bitwise equal, with CUDA-event times;
 6. slice 1: ``train-bbh`` through the CLI at n_pix 1024 with the full-width
    G, D and PE, 20 PE and 20 GAN steps, default recipe, with the phasor
    kernel's launch count read around the run;
@@ -45,13 +51,25 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 TOL = 2e-5            # max|kernel − plain| / max|plain| (tests/test_pallas_ops.py:75-76)
 CONV_TOL = 1e-4       # conv kernel and phasor VJP: float32 sums of Cin·K terms in other orders
+F64_TOL = 1e-5        # conv kernel against float64: 3xTF32 keeps float32-class accuracy
+PEAK_TOL = 1 / 64     # pass-A peak rows that may move (tests/test_torch_bank.py's bound)
 N_TIMED = 20          # timed repetitions (median) after warm-up
-# (name, L, Cin, Cout) of the flagship's conv layers at n_pix 1024, as the
-# stride-1 kernel sees them (G Conv_0 and D's layers sample its output)
-CONV_LAYERS = [("G Conv_0", 1024, 256, 64), ("G Conv_1", 1024, 64, 128),
-               ("G Conv_2", 1024, 128, 256), ("G Conv_3", 1024, 256, 512),
-               ("G Conv_4", 1024, 512, 1024), ("D Conv_0", 1024, 2, 256),
-               ("D Conv_1", 512, 256, 512)]
+# (name, L in, Cin, Cout, stride) of the flagship's conv layers at n_pix 1024
+CONV_LAYERS = [("G Conv_0", 1024, 256, 64, 2), ("G Conv_1", 1024, 64, 128, 1),
+               ("G Conv_2", 1024, 128, 256, 1), ("G Conv_3", 1024, 256, 512, 1),
+               ("G Conv_4", 1024, 512, 1024, 1), ("D Conv_0", 1024, 2, 256, 2),
+               ("D Conv_1", 512, 256, 512, 2)]
+
+
+def conv_calls() -> list:
+    """(name, what, B, L, Cin, Cout, stride) of the conv kernel's timed
+    calls: each layer's forward at batch 8 and 256 at its stride, its dx at
+    batch 8 (stride 1, channels swapped), and one Cin 2048 forward."""
+    calls = [(name, what, B, L, ci, co, s)
+             for name, L, cin, cout, stride in CONV_LAYERS
+             for what, B, ci, co, s in (("fwd", 8, cin, cout, stride),
+                                        ("fwd", 256, cin, cout, stride), ("dx", 8, cout, cin, 1))]
+    return calls + [("Cin 2048", "fwd", 8, 1024, 2048, 64, 1)]
 
 
 def fail(msg: str):
@@ -101,20 +119,28 @@ def compare(name, amp, phase, cos_t, sin_t, P):
     return out, ref, err, rel
 
 
-def conv_compare(name, x, w, b, act, C):
-    """Conv kernel vs plain on one input; returns (abs err, rel err)."""
+def conv_compare(name, x, w, b, stride, act, C):
+    """Conv kernel vs plain and both vs float64 on one input, and two kernel
+    calls bitwise equal; returns (abs err, rel err, (kernel, plain) rel
+    errors against float64)."""
     import torch
 
-    out = C.conv1d_same(x, w, b, act=act)
-    ref = C.conv1d_same_ref(x, w, b, act=act)
+    out = C.conv1d(x, w, b, stride=stride, act=act)
+    ref = C.conv1d_ref(x, w, b, stride=stride, act=act)
     torch.cuda.synchronize()
-    if not bool(torch.isfinite(out).all()):
-        fail(f"conv {name}: kernel output not finite")
+    if not bool(torch.isfinite(out).all()) or out.shape != ref.shape:
+        fail(f"conv {name}: kernel output not finite or of shape {tuple(out.shape)}")
     err = float((out - ref).abs().max())
     rel = err / float(ref.abs().max())
     if not rel <= CONV_TOL:
         fail(f"conv {name}: kernel disagrees with the plain version ({rel:.3e} > {CONV_TOL:g})")
-    return err, rel
+    r64 = C.conv1d_ref(x.double(), w.double(), b.double(), stride=stride, act=act)
+    e64 = tuple(float((y.double() - r64).abs().max() / r64.abs().max()) for y in (out, ref))
+    if not e64[0] <= F64_TOL:
+        fail(f"conv {name}: kernel off float64 by {e64[0]:.3e} of the maximum (> {F64_TOL:g})")
+    if not torch.equal(out, C.conv1d(x, w, b, stride=stride, act=act)):
+        fail(f"conv {name}: two calls on the same input differ")
+    return err, rel, e64
 
 
 def read_rows(path):
@@ -164,6 +190,8 @@ def main():
         C = torch.randn((K, T), generator=g, device=dev) / K
         S = torch.randn((K, T), generator=g, device=dev) / K
         compare(name, amp, ph, C, S, P)
+    # contiguous row views 4 and 8 bytes off 16-byte alignment (rows of 2049)
+    compare("ragged row views", amp[1:-1], ph[2:], C, S, P)
 
     # the bank's real inputs: 4096 prior masses through the port's PhenomD
     # and whitening at the n_pix 1024 geometry (N = 4096, K = 2049)
@@ -180,25 +208,38 @@ def main():
     peak_k = torch.argmax(h_k * h_k + q_k * q_k, dim=-1)
     peak_p = torch.argmax(h_p * h_p + q_p * q_p, dim=-1)
     moved = float((peak_k != peak_p).float().mean())
-    print(f"pass A peak index: kernel and plain disagree on {moved:.5f} of 4096 rows")
+    print(f"pass A peak index: kernel and plain disagree on {moved:.5f} of 4096 rows "
+          f"(limit {PEAK_TOL:.5f})")
+    if not moved <= PEAK_TOL:
+        fail(f"pass A: the peak index moved on {moved:.5f} of the rows (> {PEAK_TOL:.5f})")
     idx = torch.randint(*cfg.beta_index_bounds(), (4096,), generator=g, device=dev)
     peak = peak_p.to(torch.int32) - a_width // 2  # offset from t = 0
     shift = (idx.to(torch.int32) - peak).to(torch.float32) / cfg.fs
     phase_b = (phase + 2.0 * np.pi * freqs * shift[:, None]).contiguous()
     b_start, b_width, b_weights = tb.pass_b_slice(cfg)
     Cb, Sb = P.slice_tables(N, b_start, b_width, b_weights, dev)
-    _, _, err_b, rel_b = compare("pass B", amp, phase_b, Cb, Sb, P)
+    out_b, ref_b, err_b, rel_b = compare("pass B", amp, phase_b, Cb, Sb, P)
+    r64 = P.phasor_matmul_ref(amp.double(), phase_b.double(), Cb.double(), Sb.double())
+    e64 = [float((y.double() - r64).abs().max() / r64.abs().max()) for y in (out_b, ref_b)]
+    print(f"pass B against float64: kernel {e64[0]:.3e}, plain {e64[1]:.3e} (of the maximum)")
+    del r64, out_b, ref_b
+    for tag, ph, C, S in (("pass A", phase, Ca, Sa), ("pass B", phase_b, Cb, Sb)):
+        if not torch.equal(P.phasor_matmul(amp, ph, C, S), P.phasor_matmul(amp, ph, C, S)):
+            fail(f"phasor {tag}: two calls on the same input differ")
+    print("phasor determinism: two calls bitwise equal at pass A and pass B")
 
     amp = amp.contiguous()
     times = {}
-    for tag, (ph, C, S) in (("pass A", (phase, Ca, Sa)), ("pass B", (phase_b, Cb, Sb))):
-        k_ms = cuda_ms(lambda: P.phasor_matmul(amp, ph, C, S))
-        p_ms = cuda_ms(lambda: P.phasor_matmul_ref(amp, ph, C, S))
-        k2 = cuda_ms(lambda: P.phasor_matmul(amp, ph, C, S))
-        p2 = cuda_ms(lambda: P.phasor_matmul_ref(amp, ph, C, S))
+    for tag, n, (ph, C, S) in (("pass A", 4096, (phase, Ca, Sa)), ("pass B", 4096, (phase_b, Cb, Sb)),
+                               ("pass A B=8", 8, (phase, Ca, Sa)), ("pass B B=8", 8, (phase_b, Cb, Sb))):
+        a, ph = amp[:n].contiguous(), ph[:n].contiguous()
+        k_ms = cuda_ms(lambda: P.phasor_matmul(a, ph, C, S))
+        p_ms = cuda_ms(lambda: P.phasor_matmul_ref(a, ph, C, S))
+        k2 = cuda_ms(lambda: P.phasor_matmul(a, ph, C, S))
+        p2 = cuda_ms(lambda: P.phasor_matmul_ref(a, ph, C, S))
         times[tag] = (min(k_ms, k2), min(p_ms, p2))
-        flops = 4.0 * amp.shape[0] * amp.shape[1] * C.shape[1]
-        print(f"time {tag} (B=4096 K=2049 T={C.shape[1]}): kernel {k_ms:.3f}/{k2:.3f} ms, "
+        flops = 4.0 * n * a.shape[1] * C.shape[1]
+        print(f"time {tag} (B={n} K=2049 T={C.shape[1]}): kernel {k_ms:.3f}/{k2:.3f} ms, "
               f"plain {p_ms:.3f}/{p2:.3f} ms (median of {N_TIMED}, order kernel, plain, "
               f"kernel, plain); kernel {flops / (min(k_ms, k2) * 1e-3) / 1e12:.2f} TFLOP/s "
               f"[{card}]")
@@ -222,44 +263,51 @@ def main():
                 fail(f"phasor VJP {tag} {name}: kernel path disagrees with plain autograd")
 
     # ---- 5. conv kernel vs plain (F.conv1d through cuDNN, TF32 off) --------
+    # forwards at the layer's stride (the strided layers against Conv1d's
+    # flax-padded strided F.conv1d), dx at stride 1 on the zero-stuffed dy
     torch.backends.cudnn.allow_tf32 = False
     conv_err, conv_times = 0.0, {}
-    for name, L, cin, cout in CONV_LAYERS:
-        for what, B, ci, co in (("fwd", 8, cin, cout), ("fwd", 256, cin, cout),
-                                ("dx", 8, cout, cin)):
-            x = torch.randn((B, ci, L), generator=g, device=dev)
-            w = torch.randn((co, ci, 5), generator=g, device=dev) / math.sqrt(5 * ci)
-            b = (torch.randn((co,), generator=g, device=dev) if what == "fwd"
-                 else torch.zeros((co,), device=dev))
-            err, rel = conv_compare(f"{name} {what} B={B}", x, w, b, "none", CV)
-            conv_err = max(conv_err, err)
-            # both against float64: equal errors mean the same float32 sums
-            r64 = CV.conv1d_same_ref(x.double(), w.double(), b.double())
-            e64 = [float((y.double() - r64).abs().max() / r64.abs().max())
-                   for y in (CV.conv1d_same(x, w, b), CV.conv1d_same_ref(x, w, b))]
-            del r64
-            k1 = cuda_ms(lambda: CV.conv1d_same(x, w, b))
-            p1 = cuda_ms(lambda: CV.conv1d_same_ref(x, w, b))
-            k2 = cuda_ms(lambda: CV.conv1d_same(x, w, b))
-            p2 = cuda_ms(lambda: CV.conv1d_same_ref(x, w, b))
-            conv_times[(name, what, B)] = (min(k1, k2), min(p1, p2))
-            flops = 2.0 * B * L * 5 * ci * co
-            print(f"conv {name} {what} (B={B} L={L} Cin={ci} Cout={co}): max_abs_err={err:.3e} "
-                  f"rel={rel:.3e} (limit {CONV_TOL:g}); vs float64: kernel {e64[0]:.2e}, plain "
-                  f"{e64[1]:.2e}; kernel {k1:.3f}/{k2:.3f} ms, plain "
-                  f"{p1:.3f}/{p2:.3f} ms (median of {N_TIMED}, order kernel, plain, kernel, "
-                  f"plain); kernel {flops / (min(k1, k2) * 1e-3) / 1e12:.2f} TFLOP/s, plain "
-                  f"{flops / (min(p1, p2) * 1e-3) / 1e12:.2f} TFLOP/s [{card}]")
-    _, L, cin, cout = CONV_LAYERS[3]  # every activation at G Conv_3's shape
-    x = torch.randn((8, cin, L), generator=g, device=dev)
-    w = torch.randn((cout, cin, 5), generator=g, device=dev) / math.sqrt(5 * cin)
-    b = torch.randn((cout,), generator=g, device=dev)
-    for act in ("none", "tanh", "leaky_relu", "relu"):
-        err, rel = conv_compare(f"G Conv_3 act={act}", x, w, b, act, CV)
+    calls = conv_calls()
+    for name, what, B, L, ci, co, s in calls:
+        x = torch.randn((B, ci, L), generator=g, device=dev)
+        w = torch.randn((co, ci, 5), generator=g, device=dev) / math.sqrt(5 * ci)
+        b = (torch.randn((co,), generator=g, device=dev) if what == "fwd"
+             else torch.zeros((co,), device=dev))
+        err, rel, e64 = conv_compare(f"{name} {what} B={B}", x, w, b, s, "none", CV)
         conv_err = max(conv_err, err)
-        print(f"conv G Conv_3 act={act} (B=8): max_abs_err={err:.3e} rel={rel:.3e} "
-              f"(limit {CONV_TOL:g})")
-    del x, w, b
+        k1 = cuda_ms(lambda: CV.conv1d(x, w, b, stride=s))
+        p1 = cuda_ms(lambda: CV.conv1d_ref(x, w, b, stride=s))
+        k2 = cuda_ms(lambda: CV.conv1d(x, w, b, stride=s))
+        p2 = cuda_ms(lambda: CV.conv1d_ref(x, w, b, stride=s))
+        conv_times[(name, what, B)] = (min(k1, k2), min(p1, p2))
+        flops = 2.0 * B * -(-L // s) * 5 * ci * co
+        print(f"conv {name} {what} (B={B} L={L} Cin={ci} Cout={co} stride={s}): "
+              f"max_abs_err={err:.3e} rel={rel:.3e} (limit {CONV_TOL:g}); vs float64: kernel "
+              f"{e64[0]:.2e} (limit {F64_TOL:g}), plain {e64[1]:.2e}; kernel {k1:.3f}/{k2:.3f} ms, "
+              f"plain {p1:.3f}/{p2:.3f} ms (median of {N_TIMED}, order kernel, plain, kernel, "
+              f"plain); kernel {flops / (min(k1, k2) * 1e-3) / 1e12:.2f} TFLOP/s, plain "
+              f"{flops / (min(p1, p2) * 1e-3) / 1e12:.2f} TFLOP/s [{card}]")
+        del x, w, b
+    print(f"conv determinism: two calls bitwise equal at all {len(calls)} shapes")
+    for name, _, cin, cout, _ in CONV_LAYERS:  # the weight pack kernel vs its torch version
+        w = torch.randn((cout, cin, 5), generator=g, device=dev)
+        for transposed in (False, True):
+            if not torch.equal(CV._pack_on_card(w, transposed), CV.pack_weight(w, transposed)):
+                fail(f"conv {name}: the pack kernel differs from pack_weight "
+                     f"(transposed={transposed})")
+    print("conv weight pack: the pack kernel equals pack_weight bit for bit at all 7 layers, "
+          "forward and dx forms")
+    for name, L, cin, cout, stride in (CONV_LAYERS[3], CONV_LAYERS[0]):  # every activation
+        x = torch.randn((8, cin, L), generator=g, device=dev)
+        w = torch.randn((cout, cin, 5), generator=g, device=dev) / math.sqrt(5 * cin)
+        b = torch.randn((cout,), generator=g, device=dev)
+        for act in ("none", "tanh", "leaky_relu", "relu"):
+            err, rel, e64 = conv_compare(f"{name} act={act}", x, w, b, stride, act, CV)
+            conv_err = max(conv_err, err)
+            print(f"conv {name} act={act} (B=8 stride={stride}): max_abs_err={err:.3e} "
+                  f"rel={rel:.3e} (limit {CONV_TOL:g}); vs float64: kernel {e64[0]:.2e}, "
+                  f"plain {e64[1]:.2e}")
+        del x, w, b
 
     # ---- 6. slice 1: train-bbh through the CLI, default recipe -------------
     from gennet_tpu_torch.cli.main import main as cli_main
@@ -418,6 +466,12 @@ def main():
           f"{fmt(gan_rates['pallas'])}; ml_recenter (300 steps, 8 starts, n_pix 1024) "
           f"{mlrc_s:.2f} s, {mlrc_launches} phasor launches [{card}]")
 
+    def worst(table):
+        """The timed shape with the largest kernel / plain ratio."""
+        shape, (k, p) = max(table.items(), key=lambda kv: kv[1][0] / kv[1][1])
+        return {"shape": " ".join(map(str, shape)) if isinstance(shape, tuple) else shape,
+                "ms": k, "plain_ms": p, "ratio": k / p}
+
     # launches: slice 2, the path that runs both kernels; times: pass B and
     # G Conv_4's forward at batch 8, the largest call of each on the train path
     k_ms, p_ms = times["pass B"]
@@ -427,12 +481,13 @@ def main():
         "source": "gennet_tpu_torch/csrc/phasor_irdft.cu",
         "replaces": "gennet_tpu/ops/phasor_dft.py:25",
         "launches": phasor_launches, "max_abs_err": max(err_a, err_b), "ms": k_ms,
-        "plain_ms": p_ms,
+        "plain_ms": p_ms, "ms_worst_ratio": worst(times),
     }, {
         "name": "conv1d_same_f32", "route": "cuda",
         "source": "gennet_tpu_torch/csrc/conv1d_same.cu",
         "replaces": "gennet_tpu/ops/pallas_conv1d.py:50",
         "launches": conv_launches, "max_abs_err": conv_err, "ms": ck_ms, "plain_ms": cp_ms,
+        "ms_worst_ratio": worst(conv_times),
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,100 +1,82 @@
-// SAME stride-1 1-D convolution + bias + activation, hand-written for Hopper
-// (sm_90a).
+// SAME 1-D convolution + bias + activation at any stride, hand-written for
+// Hopper (sm_90a) as a 3xTF32 implicit GEMM on wgmma.
 //
 // Replaces the Pallas TPU kernel gennet_tpu/ops/pallas_conv1d.py::
 // _conv1d_kernel (launched by conv1d_same). It computes
 //
-//   out[b, co, l] = act( sum_{ci,k} x_pad[b, ci, l + k] * W[k, ci, co] + bias[co] )
+//   out[b, co, j] = act( sum_{k,ci} W[co, ci, k] * x[b, ci, j*s + k - pad_low] + bias[co] )
 //
-// with x_pad zero-padded by (K-1)/2 on both sides (K odd) and
-// act in {none, tanh, leaky_relu(slope), relu} fused before the single store.
-// The layouts are the PyTorch port's: x (B, Cin, L) and out (B, Cout, L);
-// W is (K, Cin, Cout), the tap-major layout the wrapper makes from a
-// (Cout, Cin, K) Conv1d weight, so a tile of output channels reads
-// contiguous memory. The same kernel computes the backward's dx with taps
-// flipped and channels transposed (the wrapper builds that W).
+// with x zero outside [0, L), for j < L_out. Stride 1 with pad_low =
+// (K-1)/2 is the TPU kernel's SAME conv; stride s with flax's pad_low is the
+// strided layer computed natively (only the kept outputs). The layouts are
+// the PyTorch port's: x (B, Cin, L), out (B, Cout, L_out). The backward's
+// dx is this kernel at stride 1 with a weight packed flipped and transposed.
 //
-// What bounds it on the card: 2*B*L*K*Cin*Cout flops against
-// 4*(B*L*(Cin + Cout) + K*Cin*Cout) bytes. At the flagship's widest layer
-// (G Conv_4: B 8, L 1024, Cin 512, Cout 1024, K 5) that is 43 GFLOP against
-// 60 MB, ~700 flop/byte: compute-bound on the FP32 pipes. Plain FP32 FMA, no
-// TF32: the port holds float32 parity with the reference.
+// What bounds it on the card: 2*B*L_out*K*Cin*Cout flops against
+// 4*(B*(L*Cin + L_out*Cout) + 2*K*cin8*Cout) bytes, compute-bound at every
+// wide layer. The products run on TF32 tensor cores, three per float32
+// product (tf32_wgmma.cuh), so the ceiling is 165 TFLOP/s of float32 work,
+// not the 67 of the FP32 pipes the plain cuDNN version is held to. Each
+// M tile re-reads the weights from L2 (hi and lo: 8 bytes a weight), so a
+// 128-row tile needs ~23 bytes a clock per SM at the tensor cores' rate,
+// about what the L2 serves; two 64-row tiles per warpgroup halve that where
+// the registers allow.
 //
-// Design, in the shape of the TPU kernel: one haloed row window of x,
-// (Cin, BL + K - 1), is loaded into shared memory once per (batch, L-block)
-// and reused across every output-channel tile the block walks (the Pallas
-// kernel DMA'd the same window once and reused it across its Cout grid
-// axis). The block then streams W through shared memory in chunks of BC
-// input channels, double-buffered: each thread fetches its share of the
-// next chunk into registers while the block computes on the current one,
-// so the L2 latency of the W stream hides behind the FMAs even at the one
-// or two blocks per SM that a wide window leaves room for. Each thread
-// keeps a TM x TN (channels x positions) register tile; per input channel
-// it loads its TN + K - 1 window values once and reuses them for all K
-// taps, so one channel costs 2 + K float4 shared-memory loads for TM*TN*K
-// FMAs. Ragged L, Cin and Cout are masked here (zeros in the window and the
-// W chunks, guarded stores), so nothing is padded to 8/128 as on the TPU.
-// The whole-Cin window bounds Cin: with BL = 32 and K = 5 it is 144 bytes
-// per input channel, so Cin <= 1329 fits the 227 KB a block may use beside
-// the two W buffers (the flagship's widest input is 1024). A launch that
-// does not fit returns cudaErrorInvalidValue.
+// Design: an implicit GEMM. M = output positions of one batch row, in
+// tiles of BM = 128 * MT (MT 64-row wgmma tiles per consumer warpgroup, two
+// consumer warpgroups; tf32_wgmma.cuh has the roles); N = Cout in a tile of BN in {8, ..., 128} fitted to
+// the layer by the wrapper; the reduction runs over 8-channel chunks, and
+// within a chunk over the K taps, one m64nBNk8 step each. Each chunk is
+// summed in the wgmma accumulator and then added into float32 totals
+// (tf32_wgmma.cuh says why), so a thread holds 2 * MT * BN / 2
+// accumulators: MT = 2 only for BN <= 64. (A 256-wide tile would need 256,
+// and its weight stage of 80 KB at K 5 would leave room for two stages.)
 //
-// When B * ceil(L/BL) blocks would not fill the card (batch 8 at L 512 gives
-// 128 blocks for 132 SMs) the output-channel tiles are split over
-// gridDim.y groups, each loading its own copy of the window.
+// A producer warpgroup fills a ring of shared-memory stages ahead of the
+// consumers, one chunk a stage: the weight tiles with one bulk copy (the
+// wrapper packs W as (Cout / BN, cin8 / 8, hi|lo, K, BN x 8 in core-matrix
+// order), cin8 = Cin rounded up to 8 with zeros: each stage is one
+// contiguous block), and the x window of the tile with 4-byte cp.async
+// (positions j0*s - pad_low ... + (BM-1)*s + K, zero outside [0, L), stored
+// split by phase (position mod s) so a tap reads consecutive rows at any
+// stride). The consumers wait on the stage's full barrier, build each tap's
+// A fragment (the im2col of x, never stored) from the window and split it in
+// registers, the next tap's while this tap's products run, and release the
+// stage on its empty barrier when its products are done. The two consumer
+// warpgroups never wait for each other, so one's fragments overlap the
+// other's products. Cin is streamed, so there is no bound on it. Bias and
+// act are fused before the single store; ragged L_out and Cout are masked.
+// No atomics: each output is summed by one thread in a fixed order, so a
+// call is bitwise reproducible.
+//
+// The weight pack (split, padded, tiled; for dx also flipped and
+// transposed) is made on the card by pack_weight_kernel, one launch: a
+// training step re-packs every weight, and at batch 8 the step is bound by
+// the host, where a pack in torch ops would cost ~20 launches.
 
-#include <cuda_runtime.h>
+#include "tf32_wgmma.cuh"
 
 namespace {
 
-constexpr int BL = 32;                  // output positions per block
-constexpr int BM = 128;                 // output channels per tile
-constexpr int BC = 8;                   // input channels per W chunk
-constexpr int TN = 4;                   // positions per thread
-constexpr int TM = 4;                   // output channels per thread
-constexpr int TX = BL / TN;             // 8 threads along positions
-constexpr int TY = BM / TM;             // 32 threads along channels
-constexpr int THREADS = TX * TY;        // 256
-constexpr int SMEM_LIMIT = 232448;      // bytes of shared memory a block may use
-constexpr int MIN_BLOCKS = 264;         // two waves of 132 SMs
+using namespace tf32x3;
+
+constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory a block may use
+constexpr int MAX_STAGES = 4;
 
 enum Act { ACT_NONE = 0, ACT_TANH = 1, ACT_LEAKY_RELU = 2, ACT_RELU = 3 };
 
-__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
-
-// Shared-memory row length of the x window: BL + K - 1 positions, rounded
-// to whole float4s so every row starts 16-byte aligned.
-__host__ __device__ constexpr int window_width(int K) { return round4(BL + K - 1); }
-
-// Floats in one W chunk (BC input channels x K taps x BM output channels),
-// and each thread's share of it.
-__host__ __device__ constexpr int chunk_size(int K) { return BC * K * BM; }
-static_assert((BC * BM) % THREADS == 0, "a W chunk splits evenly over the threads");
-
-// This thread's share of the W chunk [ci0, ci0 + BC) x all taps x
-// [co0, co0 + BM), zero outside Cin and Cout; neighbouring threads read
-// neighbouring output channels. Element e of the chunk is (cl, k, co) with
-// e = (cl * K + k) * BM + co.
-template <int K>
-__device__ __forceinline__ void fetch_chunk(float (&reg)[chunk_size(K) / THREADS],
-                                            const float* __restrict__ w, int tid, int co0,
-                                            int ci0, int Cin, int Cout) {
-#pragma unroll
-  for (int i = 0; i < chunk_size(K) / THREADS; ++i) {
-    const int e = tid + i * THREADS;
-    const int co = e % BM, r = e / BM;
-    const int ci = ci0 + r / K, k = r % K, c = co0 + co;
-    reg[i] = (ci < Cin && c < Cout) ? w[(static_cast<size_t>(k) * Cin + ci) * Cout + c] : 0.f;
-  }
-}
-
-template <int K>
-__device__ __forceinline__ void stash_chunk(float* __restrict__ buf,
-                                            const float (&reg)[chunk_size(K) / THREADS],
-                                            int tid) {
-#pragma unroll
-  for (int i = 0; i < chunk_size(K) / THREADS; ++i) buf[tid + i * THREADS] = reg[i];
-}
+struct Conv {
+  const float* x;
+  const float* w;  // packed, see above
+  const float* bias;
+  float* out;
+  int L, Cin, Cout, K, stride, pad_low, L_out;
+  int cin8, n_chunks, m_tiles;  // m_tiles: M tiles per batch row
+  int win, wph, xw;             // window positions, per-phase length, row stride
+  int stage_floats, stages;
+  int act;
+  float slope;
+};
 
 __device__ __forceinline__ float apply_act(float y, int act, float slope) {
   switch (act) {
@@ -105,145 +87,257 @@ __device__ __forceinline__ float apply_act(float y, int act, float slope) {
   }
 }
 
-template <int K>
-__global__ void __launch_bounds__(THREADS)
-conv1d_same_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ bias, float* __restrict__ out,
-                   int L, int Cin, int Cout, int n_lblocks, int act, float slope) {
-  constexpr int XW = window_width(K);
-  constexpr int XR = round4(TN + K - 1);  // window values a thread reads per channel
-  constexpr int PAD = (K - 1) / 2;
-  constexpr int WC = chunk_size(K);
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                       // [Cin][XW]
-  float* ws = smem + Cin * XW;            // [2][BC][K][BM]: two W chunk buffers
+// One tap of a chunk: wait for the products that last read `a` (two taps
+// back), build the tap's A fragments from the window (xk: this thread's
+// first element at this tap), issue 3 * MT wgmmas (the chunk's first tap
+// restarts the partial sums).
+template <int BN, int MT>
+__device__ __forceinline__ void conv_tap(float (&acc)[MT][BN / 2], SplitA (&a)[MT],
+                                         const float* xk, int xw4, uint64_t dh, uint64_t dl,
+                                         bool fresh) {
+  wgmma_wait<1>();
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)  // row + 8 (i & 1), channel + 4 (i >> 1)
+      split_tf32(xk[t * 64 + 8 * (i & 1) + (i >> 1) * xw4], a[t].hi[i], a[t].lo[i]);
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < MT; ++t) mma_3xtf32<BN>(acc[t], a[t], dh, dl, fresh);
+  wgmma_commit();
+}
 
+template <int BN, int MT>
+__global__ void __launch_bounds__(THREADS, 1) conv1d_kernel(const Conv p) {
+  constexpr int BM = 128 * MT;
+  constexpr int R = BN / 2;
+  extern __shared__ __align__(128) float smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + p.stages * p.stage_floats);
+  uint64_t* empty = full + p.stages;
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int lb = blockIdx.x % n_lblocks;
-  const int b = blockIdx.x / n_lblocks;
-  const int l0 = lb * BL;
+  const int b = blockIdx.x / p.m_tiles;
+  const int j0 = (blockIdx.x % p.m_tiles) * BM;
+  const int co0 = blockIdx.y * BN;
+  const int wtile = p.K * BN * 8;  // floats of one weight tile (hi or lo) of a chunk
+  if (tid == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      mbar_init(&full[i], PRODUCERS + 1);
+      mbar_init(&empty[i], CONSUMERS / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  // ---- the haloed window: x[b, :, l0 - PAD : l0 - PAD + XW], zero outside [0, L)
-  const float* xb = x + static_cast<size_t>(b) * Cin * L;
-  for (int e = tid; e < Cin * XW; e += THREADS) {
-    const int ci = e / XW, j = e % XW;
-    const int l = l0 - PAD + j;
-    xs[e] = (l >= 0 && l < L) ? xb[static_cast<size_t>(ci) * L + l] : 0.f;
+  if (tid >= CONSUMERS) {
+    // ---- producer warpgroup: chunk c (input channels 8c ... 8c + 7) into
+    // slot c % stages; neighbouring threads copy neighbouring positions
+    regs_shrink<PRODUCER_REGS>();
+    const int pt = tid - CONSUMERS;
+    const int q0 = j0 * p.stride - p.pad_low;  // input position of window entry 0
+    const float* xb = p.x + static_cast<size_t>(b) * p.Cin * p.L;
+    const float* wb = p.w + static_cast<size_t>(blockIdx.y) * p.n_chunks * 2 * wtile;
+    for (int c = 0; c < p.n_chunks; ++c) {
+      const int slot = c % p.stages;
+      mbar_wait(&empty[slot], ((c / p.stages) & 1) ^ 1);
+      float* xs = smem + slot * p.stage_floats;
+      if (pt == 0)
+        bulk_load(xs + 8 * p.xw, wb + static_cast<size_t>(c) * 2 * wtile, 8 * wtile, &full[slot]);
+      const int rows = min(8, p.Cin - 8 * c);
+      for (int q = pt; q < p.win; q += PRODUCERS) {
+        const int pos = q0 + q;
+        const bool in = pos >= 0 && pos < p.L;
+        const float* src = xb + static_cast<size_t>(8 * c) * p.L + pos;
+        float* dst = xs + (q % p.stride) * p.wph + q / p.stride;
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const bool ok = in && r < rows;
+          cp_async4(dst + r * p.xw, ok ? src + static_cast<size_t>(r) * p.L : p.x, ok);
+        }
+      }
+      cp_async_arrive(&full[slot]);
+    }
+    cp_async_wait_all();
+    return;
   }
 
-  const int n_tiles = (Cout + BM - 1) / BM;
-  const int n_chunks = (Cin + BC - 1) / BC;
-  float reg[WC / THREADS];
-  for (int tile = blockIdx.y; tile < n_tiles; tile += gridDim.y) {
-    const int co0 = tile * BM;
-    float acc[TM][TN];
+  // ---- consumer warpgroups
+  regs_grow<CONSUMER_REGS>();
+  const int lane = tid & 31, warp = (tid >> 5) & 3, wg = tid >> 7;
+  float acc[MT][R], total[MT][R];  // wgmma partial sums of a chunk; float32 totals
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+  for (int t = 0; t < MT; ++t)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-    // every thread is past the previous tile's last read of both buffers
-    fetch_chunk<K>(reg, w, tid, co0, 0, Cin, Cout);
-    stash_chunk<K>(ws, reg, tid);
-    __syncthreads();
-
-    for (int c = 0; c < n_chunks; ++c) {
-      const int ci0 = c * BC;
-      const float* cur = ws + (c & 1) * WC;
-      const bool more = c + 1 < n_chunks;
-      if (more) fetch_chunk<K>(reg, w, tid, co0, ci0 + BC, Cin, Cout);  // in flight below
-
-      const int nc = min(BC, Cin - ci0);
-      for (int cl = 0; cl < nc; ++cl) {
-        float xr[XR];
-        const float* xrow = xs + (ci0 + cl) * XW + tx * TN;
-#pragma unroll
-        for (int q = 0; q < XR / 4; ++q) {
-          const float4 v = *reinterpret_cast<const float4*>(xrow + 4 * q);
-          xr[4 * q] = v.x;
-          xr[4 * q + 1] = v.y;
-          xr[4 * q + 2] = v.z;
-          xr[4 * q + 3] = v.w;
-        }
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const float4 w4 = *reinterpret_cast<const float4*>(cur + (cl * K + k) * BM + ty * TM);
-          const float wv[TM] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(wv[i], xr[j + k], acc[i][j]);
-        }
+    for (int i = 0; i < R; ++i) acc[t][i] = total[t][i] = 0.f;
+  SplitA a0[MT], a1[MT];
+  const int mrow = wg * 64 * MT + warp * 16 + (lane >> 2);
+  const int kcol = lane & 3;
+  const int xw4 = 4 * p.xw;
+  for (int c = 0; c < p.n_chunks; ++c) {
+    const int slot = c % p.stages;
+    mbar_wait(&full[slot], (c / p.stages) & 1);
+    const float* xs = smem + slot * p.stage_floats + kcol * p.xw + mrow;
+    uint64_t dh = kmajor_desc(smem + slot * p.stage_floats + 8 * p.xw, BN);
+    uint64_t dl = dh + desc_step(BN) * p.K;
+    // tap k reads window entry m*s + k, stored at (k % s) * wph + m + k / s
+    int phase = 0, shift = 0;
+    for (int k = 0; k < p.K; k += 2) {
+      conv_tap<BN, MT>(acc, a0, xs + phase * p.wph + shift, xw4, dh, dl, k == 0);
+      if (++phase == p.stride) phase = 0, ++shift;
+      if (k + 1 < p.K) {
+        conv_tap<BN, MT>(acc, a1, xs + phase * p.wph + shift, xw4, dh + desc_step(BN),
+                         dl + desc_step(BN), false);
+        if (++phase == p.stride) phase = 0, ++shift;
       }
-      // the other buffer was last read in iteration c - 1, before its barrier
-      if (more) stash_chunk<K>(ws + ((c + 1) & 1) * WC, reg, tid);
-      __syncthreads();
+      dh += 2 * desc_step(BN);
+      dl += 2 * desc_step(BN);
     }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&empty[slot]);  // this warp is done with the stage
+#pragma unroll
+    for (int t = 0; t < MT; ++t) promote(total[t], acc[t]);
+  }
 
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int c = co0 + ty * TM + i;
-      if (c >= Cout) continue;
-      const float bc = bias[c];
-      float* orow = out + (static_cast<size_t>(b) * Cout + c) * L;
+  for (int t = 0; t < MT; ++t) {
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int l = l0 + tx * TN + j;
-        if (l < L) orow[l] = apply_act(acc[i][j] + bc, act, slope);
-      }
+    for (int i = 0; i < R; ++i) {
+      const int co = co0 + 8 * (i >> 2) + 2 * kcol + (i & 1);
+      const int j = j0 + mrow + t * 64 + 8 * ((i >> 1) & 1);
+      if (co < p.Cout && j < p.L_out)
+        p.out[(static_cast<size_t>(b) * p.Cout + co) * p.L_out + j] =
+            apply_act(total[t][i] + (p.bias ? p.bias[co] : 0.f), p.act, p.slope);
     }
   }
 }
 
-template <int K>
-int launch(const float* x, const float* w, const float* bias, float* out, int B, int L,
-           int Cin, int Cout, int act, float slope, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(Cin) * window_width(K) + 2 * chunk_size(K));
-  if (smem > static_cast<size_t>(SMEM_LIMIT)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(conv1d_same_kernel<K>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+// The N tiles the kernel is built for.
+bool valid_tile(int BN) { return BN == 8 || BN == 16 || BN == 32 || BN == 64 || BN == 128; }
+
+template <int BN, int MT>
+int launch(Conv p, int B, cudaStream_t stream) {
+  constexpr int BM = 128 * MT;
+  p.m_tiles = (p.L_out + BM - 1) / BM;
+  p.win = (BM - 1) * p.stride + p.K;
+  p.wph = (p.win + p.stride - 1) / p.stride;
+  p.xw = p.stride * p.wph;
+  p.xw += (40 - p.xw % 32) % 32;  // row stride = 8 mod 32: fragment reads hit 32 banks
+  p.stage_floats = 8 * p.xw + 2 * p.K * BN * 8;
+  const int stage_bytes = 4 * p.stage_floats + 16;  // and its two barriers
+  p.stages = SMEM_LIMIT / stage_bytes < MAX_STAGES ? SMEM_LIMIT / stage_bytes : MAX_STAGES;
+  if (p.stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = p.stages * stage_bytes;
+  cudaError_t err = cudaFuncSetAttribute(conv1d_kernel<BN, MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_lblocks = (L + BL - 1) / BL;
-  const long long blocks = static_cast<long long>(B) * n_lblocks;
+  const long long blocks = static_cast<long long>(B) * p.m_tiles;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_tiles = (Cout + BM - 1) / BM;
-  int groups = static_cast<int>((MIN_BLOCKS + blocks - 1) / blocks);
-  groups = groups < 1 ? 1 : (groups > n_tiles ? n_tiles : groups);
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(groups));
-  conv1d_same_kernel<K><<<grid, THREADS, smem, stream>>>(x, w, bias, out, L, Cin, Cout,
-                                                         n_lblocks, act, slope);
+  const dim3 grid(static_cast<unsigned>(blocks), (p.Cout + BN - 1) / BN);
+  conv1d_kernel<BN, MT><<<grid, THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Two 64-row tiles per warpgroup where the registers allow and that still
+// gives every SM a block: twice the reuse of each staged weight tile.
+template <int BN>
+int launch_fitted(const Conv& p, int B, cudaStream_t stream) {
+  if constexpr (BN < 128) {
+    const long long wide = static_cast<long long>(B) * ((p.L_out + 255) / 256) *
+                           ((p.Cout + BN - 1) / BN);
+    if (wide >= sm_count()) return launch<BN, 2>(p, B, stream);
+  }
+  return launch<BN, 1>(p, B, stream);
+}
+
+// hi, lo of x as ops/tf32.py::split_tf32 makes them, on the bit pattern.
+__device__ __forceinline__ void split_bits(float x, float& hi, float& lo) {
+  const uint32_t bits = __float_as_uint(x);
+  float h = __uint_as_float((bits + 0x1000u) & 0xFFFFE000u);
+  if (isfinite(x) && !isfinite(h)) h = __uint_as_float(bits & 0xFFFFE000u);
+  if (isnan(x)) h = x;
+  hi = h;
+  lo = isfinite(x) ? x - h : 0.f;
+}
+
+// The weight pack, one thread per element of a hi tile: element `in` of
+// chunk `chunk` (= N tile * n_chunks + c) is (tap k, half kh of the 8
+// channels, row group g, row r, channel q) of the layout in the header.
+__global__ void pack_weight_kernel(const float* __restrict__ w, float* __restrict__ out,
+                                   int Cout, int Cin, int K, int BN, int transposed,
+                                   int n_chunks, long long total) {
+  const int tile = K * BN * 8;  // floats of one half (hi or lo) of a chunk
+  const int rows = transposed ? Cin : Cout, chans = transposed ? Cout : Cin;
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < total;
+       e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long chunk = e / tile;
+    const int in = static_cast<int>(e - chunk * tile);
+    const int q = in & 3, r = (in >> 2) & 7, rest = in >> 5;
+    const int g = rest % (BN / 8), kh = (rest / (BN / 8)) & 1, k = rest / (BN / 8) >> 1;
+    const int n = static_cast<int>(chunk / n_chunks) * BN + 8 * g + r;
+    const int ci = static_cast<int>(chunk % n_chunks) * 8 + 4 * kh + q;
+    float v = 0.f;
+    if (n < rows && ci < chans)  // the dx form: taps flipped, channels swapped
+      v = transposed ? w[(static_cast<size_t>(ci) * Cin + n) * K + (K - 1 - k)]
+                     : w[(static_cast<size_t>(n) * Cin + ci) * K + k];
+    float* o = out + chunk * 2 * tile + in;
+    split_bits(v, o[0], o[tile]);
+  }
 }
 
 }  // namespace
 
-// Largest Cin whose window fits a block's shared memory at tap count K
-// (0 for an unsupported K); the wrapper checks it before launching.
-extern "C" int conv1d_same_max_cin(int K) {
-  if (K != 1 && K != 3 && K != 5 && K != 7 && K != 9) return 0;
-  return (SMEM_LIMIT / static_cast<int>(sizeof(float)) - 2 * chunk_size(K)) / window_width(K);
-}
-
 // Launches on `stream` (PyTorch's current stream) and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernel does
-// not take (K not in {1, 3, 5, 7, 9}, act unknown, Cin too large for the
-// window). All pointers are float32, contiguous: x (B, Cin, L),
-// w (K, Cin, Cout), bias (Cout), out (B, Cout, L).
+// not take. All pointers are float32, contiguous: x (B, Cin, L); w the
+// packed weight (ops/conv1d.py::pack_weight at tile width BN, one of 8, 16,
+// 32, 64, 128); bias (Cout), or null for none; out (B, Cout, L_out). K is
+// any odd tap count up to 9.
 extern "C" int conv1d_same_f32(const float* x, const float* w, const float* bias, float* out,
-                               int B, int L, int Cin, int Cout, int K, int act, float slope,
-                               void* stream) {
-  if (B <= 0 || L <= 0 || Cin <= 0 || Cout <= 0 || act < ACT_NONE || act > ACT_RELU)
+                               int B, int L, int Cin, int Cout, int K, int stride, int pad_low,
+                               int L_out, int BN, int act, float slope, void* stream) {
+  if (B <= 0 || L <= 0 || Cin <= 0 || Cout <= 0 || L_out <= 0 || stride <= 0 || K <= 0 ||
+      K > 9 || K % 2 == 0 || pad_low < 0 || act < ACT_NONE || act > ACT_RELU)
     return static_cast<int>(cudaErrorInvalidValue);
+  Conv p{};
+  p.x = x;
+  p.w = w;
+  p.bias = bias;
+  p.out = out;
+  p.L = L;
+  p.Cin = Cin;
+  p.Cout = Cout;
+  p.K = K;
+  p.stride = stride;
+  p.pad_low = pad_low;
+  p.L_out = L_out;
+  p.cin8 = (Cin + 7) / 8 * 8;
+  p.n_chunks = p.cin8 / 8;
+  p.act = act;
+  p.slope = slope;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (K) {
-    case 1: return launch<1>(x, w, bias, out, B, L, Cin, Cout, act, slope, s);
-    case 3: return launch<3>(x, w, bias, out, B, L, Cin, Cout, act, slope, s);
-    case 5: return launch<5>(x, w, bias, out, B, L, Cin, Cout, act, slope, s);
-    case 7: return launch<7>(x, w, bias, out, B, L, Cin, Cout, act, slope, s);
-    case 9: return launch<9>(x, w, bias, out, B, L, Cin, Cout, act, slope, s);
+  switch (BN) {
+    case 8: return launch_fitted<8>(p, B, s);
+    case 16: return launch_fitted<16>(p, B, s);
+    case 32: return launch_fitted<32>(p, B, s);
+    case 64: return launch_fitted<64>(p, B, s);
+    case 128: return launch_fitted<128>(p, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Writes the packed weight conv1d_same_f32 takes (ops/conv1d.py::
+// pack_weight(w, transposed), bit for bit) in one launch on `stream`: w
+// (Cout, Cin, K) contiguous float32; out as many floats as that pack has at
+// tile width BN (the tile of Cin with `transposed`, of Cout without).
+extern "C" int conv1d_pack_weight_f32(const float* w, float* out, int Cout, int Cin, int K,
+                                      int BN, int transposed, void* stream) {
+  if (Cout <= 0 || Cin <= 0 || K <= 0 || !valid_tile(BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = transposed ? Cin : Cout, chans = transposed ? Cout : Cin;
+  const int n_chunks = (chans + 7) / 8;
+  const long long total = static_cast<long long>((rows + BN - 1) / BN) * n_chunks * K * BN * 8;
+  const long long want = (total + 255) / 256;
+  pack_weight_kernel<<<static_cast<unsigned>(want < 4096 ? want : 4096), 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(w, out, Cout, Cin, K, BN, transposed,
+                                                           n_chunks, total);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -71,20 +71,16 @@ class Conv1d(nn.Module):
 class PallasConv1d(Conv1d):
     """SAME 1-D convolution through the port's conv1d kernel (port of
     ``PallasConv1D``): :class:`~gennet_tpu_torch.ops.conv1d.Conv1dTrain`
-    at stride 1, the stride-s output sampled from it. Its parameters are
-    :class:`Conv1d`'s (weight (Cout, Cin, K), bias), so converted weights
-    and saved ``state_dict``s work under either implementation. Linear
-    output, as with :class:`Conv1d`."""
+    at the layer's stride, which the kernel computes natively. Its
+    parameters are :class:`Conv1d`'s (weight (Cout, Cin, K), bias), so
+    converted weights and saved ``state_dict``s work under either
+    implementation. Linear output, as with :class:`Conv1d`."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 1):
         super().__init__(in_ch, out_ch, kernel_size, stride, padding="SAME")
 
     def forward(self, x):
-        y = conv1d_ops.conv1d_train(x, self.weight, self.bias)
-        if self.stride == 1:
-            return y
-        off, out_len = conv1d_ops.stride_offset(x.shape[-1], self.kernel_size, self.stride)
-        return y[:, :, off::self.stride][:, :, :out_len]
+        return conv1d_ops.conv1d_train(x, self.weight, self.bias, self.stride)
 
 
 def conv1d_layer(impl: str, in_ch: int, out_ch: int, kernel_size: int = 5,

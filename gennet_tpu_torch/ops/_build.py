@@ -83,11 +83,13 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     lib.phasor_irdft_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.phasor_irdft_f32.restype = ctypes.c_int
-    lib.conv1d_same_f32.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    lib.phasor_irdft_workspace.argtypes = [ctypes.c_int] * 3
+    lib.phasor_irdft_workspace.restype = ctypes.c_longlong
+    lib.conv1d_same_f32.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                                     + [ctypes.c_float, ctypes.c_void_p])
     lib.conv1d_same_f32.restype = ctypes.c_int
-    lib.conv1d_same_max_cin.argtypes = [ctypes.c_int]
-    lib.conv1d_same_max_cin.restype = ctypes.c_int
+    lib.conv1d_pack_weight_f32.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.conv1d_pack_weight_f32.restype = ctypes.c_int
     lib.gennet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.gennet_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib

@@ -8,7 +8,8 @@ For h̃ = A e^{−iΨ} the template pipeline ends with
 (C/S the inverse-rDFT tables of :mod:`.dft`). On a CUDA tensor
 :func:`phasor_matmul` launches the hand-written kernel
 (``csrc/phasor_irdft.cu``, the port of ``gennet_tpu.ops.phasor_dft``'s
-Pallas kernel), which never writes the (B, K) phasor to device memory. On a
+Pallas kernel: a 3xTF32 GEMM on the tensor cores whose A operand, the
+phasor, is formed in registers and never written to device memory). On a
 CPU tensor it runs :func:`phasor_matmul_ref`, the plain version, which the
 tests and the on-card comparison also use. There is no fallback from one to
 the other: a CUDA tensor launches the kernel or raises.
@@ -19,9 +20,11 @@ the backward is plain matmuls around the forward's inputs, as there.
 """
 
 import torch
+import torch.nn.functional as F
 
 from gennet_tpu_torch.ops import _build
 from gennet_tpu_torch.ops.dft import _irdft_slice_tables
+from gennet_tpu_torch.ops.tf32 import cached_pack, split_tf32
 
 # Kernel launches in this process. Incremented only where the kernel is
 # launched, so a run can show that its main path went through the kernel.
@@ -53,6 +56,34 @@ def _check(amp, phase, cos_t, sin_t):
                          f"do not match amp {tuple(amp.shape)}")
 
 
+TILE_N = 128  # the kernel's N tile: output samples per block, masked past T
+
+
+def pack_tables(cos_t: torch.Tensor, sin_t: torch.Tensor) -> torch.Tensor:
+    """The kernel's B operand: the 3xTF32 split (hi, lo) of the tables,
+    transposed to K-major and laid out as the shared-memory image of each
+    pipeline stage,
+
+        (T / BN, kp / 8, C|S, hi|lo, 2, BN / 8, 8, 4)   BN = TILE_N
+
+    i.e. for each N tile and 8-bin step, four K-major BN x 8 tiles of
+    2 x BN/8 core matrices of 8 rows x 4 bins, T padded to BN and the K
+    bins to kp (a multiple of 8) with zeros."""
+    K, T = cos_t.shape
+    bn = TILE_N
+    tables = F.pad(torch.stack((cos_t.T, sin_t.T)), (0, -K % 8, 0, -T % bn))  # (2, T', kp)
+    tiles = tables.reshape(2, -1, bn // 8, 8, tables.shape[-1] // 8, 2, 4).permute(1, 4, 0, 5, 2, 3, 6)
+    return torch.stack(split_tf32(tiles.contiguous()), dim=3).contiguous()
+
+
+def unpack_tables(pack: torch.Tensor, K: int, T: int) -> tuple:
+    """(cos_t, sin_t) from a pack: the inverse of :func:`pack_tables`."""
+    n_tiles, n_steps, _, _, _, g, _, _ = pack.shape
+    tiles = (pack[:, :, :, 0] + pack[:, :, :, 1]).permute(2, 0, 4, 5, 1, 3, 6)
+    full = tiles.reshape(2, n_tiles * g * 8, n_steps * 8)[:, :T, :K]
+    return full[0].T.contiguous(), full[1].T.contiguous()
+
+
 def _forward(amp, phase, cos_t, sin_t):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
     global LAUNCHES
@@ -63,13 +94,21 @@ def _forward(amp, phase, cos_t, sin_t):
     B, K = amp.shape
     T = cos_t.shape[1]
     out = torch.empty((B, T), dtype=torch.float32, device=amp.device)
-    if B == 0 or T == 0:
-        return out
+    if B == 0 or T == 0 or K == 0:
+        return out.zero_()
+    # the tables are constants (slice_tables caches them): packed once
+    tables = cached_pack("phasor", (cos_t, sin_t), lambda: pack_tables(cos_t, sin_t))
+    # the kernel copies amp/phase in 16-byte pieces from 16-byte aligned
+    # storage: a row view such as amp[1:] is copied to a fresh allocation
+    amp, phase = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (amp, phase))
     lib = _build.load()
+    n_ws = lib.phasor_irdft_workspace(B, K, T)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=amp.device) if n_ws else None
     with torch.cuda.device(amp.device):
         stream = torch.cuda.current_stream(amp.device).cuda_stream
-        rc = lib.phasor_irdft_f32(amp.data_ptr(), phase.data_ptr(), cos_t.data_ptr(),
-                                  sin_t.data_ptr(), out.data_ptr(), B, K, T, stream)
+        rc = lib.phasor_irdft_f32(amp.data_ptr(), phase.data_ptr(), tables.data_ptr(),
+                                  out.data_ptr(), ws.data_ptr() if ws is not None else None,
+                                  B, K, T, stream)
     if rc != 0:
         msg = lib.gennet_cuda_error_string(rc).decode()
         raise RuntimeError(f"phasor_irdft_f32 launch failed ({rc}: {msg}) at B={B} K={K} T={T}")
@@ -125,7 +164,8 @@ def phasor_matmul(amp: torch.Tensor, phase: torch.Tensor, cos_t: torch.Tensor,
 
 
 def slice_tables(N: int, start: int, width: int, weights: tuple | None, device) -> tuple:
-    """Device copies of the (N//2+1, width) iDFT column tables, cached."""
+    """Device copies of the (N//2+1, width) iDFT column tables, cached (and
+    so is the kernel's pack of them, made at their first launch)."""
     key = (N, start, width, weights, str(device))
     if key not in _TABLES:
         c, s = _irdft_slice_tables(N, start, width, weights)

@@ -10,7 +10,8 @@ Tolerances: rtol/atol 2e-4 for the op and the models (test_pallas_ops.py's
 values: float32 sums of Cin·K terms in other orders); gradients scaled by
 their max, rtol 1e-3 / atol 1e-4 (test_pallas_ops.py:155-160); "pallas" vs
 "xla" inside the port 1e-4·max (the same plain convolution, summed in
-other orders on the two paths); the kernel on the card 1e-4·max.
+other orders on the two paths); the kernel on the card 1e-4·max against
+plain and 1e-5·max against float64.
 """
 
 import numpy as np
@@ -52,6 +53,7 @@ def _port(x, w, b):
     (2, 64, 8, 128, 5, 1, "relu"),
     (1, 48, 4, 96, 3, 1, "none"),      # ragged L and Cout
     (3, 50, 2, 24, 5, 2, "leaky_relu"),  # D Conv_0's Cin = 2, odd batch, ragged stride-2 length
+    (2, 255, 8, 16, 5, 2, "tanh"),     # odd L at stride 2
 ])
 def test_conv1d_matches_pallas_interpret(B, L, Cin, Cout, K, stride, act):
     _, jnp, jc = _jax()
@@ -81,6 +83,41 @@ def test_conv1d_train_grads_match_jax():
         scale = np.abs(np.asarray(r)).max() + 1e-12
         np.testing.assert_allclose(a / scale, np.asarray(r) / scale, rtol=1e-3, atol=1e-4,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("L", [64, 255])
+def test_strided_conv1d_train_grads_match_jax(L):
+    # the reference's strided PallasConv1D is conv1d_train sampled; the
+    # port's Conv1dTrain takes the stride (native on the card) and
+    # zero-stuffs dy in its backward
+    jax, jnp, jc = _jax()
+    x, w, b = _inputs(2, L, 8, 16, 5, seed=L)
+    off, out_len = C.stride_offset(L, 5, 2)
+
+    def loss_j(x, w, b):
+        y = jc.conv1d_train(x, w, b, 32, 128, True)[:, off::2, :][:, :out_len, :]
+        return jnp.sum(jnp.sin(y) * y)
+
+    g_j = jax.grad(loss_j, argnums=(0, 1, 2))(*map(jnp.asarray, (x, w, b)))
+    xt, wt, bt = (t.requires_grad_() for t in _port(x, w, b))
+    y = C.conv1d_train(xt, wt, bt, stride=2)
+    assert y.shape == (2, 16, out_len)
+    torch.sum(torch.sin(y) * y).backward()
+    got = (xt.grad.numpy().transpose(0, 2, 1), wt.grad.numpy().transpose(2, 1, 0), bt.grad.numpy())
+    for name, a, r in zip(("dx", "dw", "db"), got, g_j):
+        scale = np.abs(np.asarray(r)).max() + 1e-12
+        np.testing.assert_allclose(a / scale, np.asarray(r) / scale, rtol=1e-3, atol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("L,K", [(256, 5), (255, 5), (37, 3), (4, 5)])
+def test_strided_plain_is_the_sampled_stride_1_output(L, K):
+    # conv1d_ref runs F.conv1d at the stride with flax's padding; the
+    # reference's strided layer is the stride-1 SAME output, sampled
+    x, w, b = _port(*_inputs(2, L, 3, 4, K, seed=L))
+    off, out_len = C.stride_offset(L, K, 2)
+    want = C.conv1d_same_ref(x, w, b, "tanh")[:, :, off::2][:, :, :out_len]
+    torch.testing.assert_close(C.conv1d_ref(x, w, b, 2, "tanh"), want, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("L", [256, 255])
@@ -215,30 +252,70 @@ def test_wrapper_rejects_bad_inputs(bad):
         C.conv1d_same(x, w, b, act="swish" if bad == "act" else "none")
 
 
-# the flagship's conv shapes (n_pix 1024): (B, L, Cin, Cout) of the
-# stride-1 kernel call, forward and dx
-_CARD_SHAPES = [(8, 1024, 256, 64), (8, 1024, 64, 128), (8, 1024, 128, 256),
-                (8, 1024, 256, 512), (8, 1024, 512, 1024), (8, 1024, 2, 256),
-                (8, 512, 256, 512), (8, 1024, 1024, 512), (8, 1024, 256, 2), (3, 37, 5, 7)]
+# the flagship's conv shapes (n_pix 1024): (B, L, Cin, Cout, K, stride) of
+# the kernel's calls, forward (the three strided layers at their native
+# stride 2) and dx (stride 1), and edge cases: Cout 2, 7 and 64, ragged L,
+# Cin 2048 (beyond the earlier kernel's shared-memory window), K 3
+_CARD_SHAPES = [(8, 1024, 256, 64, 5, 2), (8, 1024, 64, 128, 5, 1), (8, 1024, 128, 256, 5, 1),
+                (8, 1024, 256, 512, 5, 1), (8, 1024, 512, 1024, 5, 1), (8, 1024, 2, 256, 5, 2),
+                (8, 512, 256, 512, 5, 2), (8, 1024, 1024, 512, 5, 1), (8, 1024, 256, 2, 5, 1),
+                (8, 1024, 64, 256, 5, 1), (3, 37, 5, 7, 5, 1), (2, 255, 3, 2, 5, 2),
+                (1, 37, 2048, 64, 5, 1), (2, 100, 9, 200, 3, 1)]
+
+
+def _card_inputs(B, L, Cin, Cout, K, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, Cin, L), generator=g, device="cuda")
+    w = torch.randn((Cout, Cin, K), generator=g, device="cuda") / (K * Cin) ** 0.5
+    b = torch.randn((Cout,), generator=g, device="cuda")
+    return x, w, b
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,L,Cin,Cout", _CARD_SHAPES)
+@pytest.mark.parametrize("B,L,Cin,Cout,K,stride", _CARD_SHAPES)
 @pytest.mark.parametrize("act", ["none", "tanh", "leaky_relu", "relu"])
-def test_kernel_matches_plain_on_card(B, L, Cin, Cout, act):
+def test_kernel_matches_plain_on_card(B, L, Cin, Cout, K, stride, act):
+    # 1e-4·max against plain (float32 sums in other orders) and 1e-5·max
+    # against float64: 3xTF32 keeps float32-class accuracy
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the conv1d kernel has no CPU mode")
     torch.backends.cudnn.allow_tf32 = False
-    g = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((B, Cin, L), generator=g, device="cuda")
-    w = torch.randn((Cout, Cin, 5), generator=g, device="cuda") / (5 * Cin) ** 0.5
-    b = torch.randn((Cout,), generator=g, device="cuda")
+    x, w, b = _card_inputs(B, L, Cin, Cout, K)
     before = C.LAUNCHES
-    out = C.conv1d_same(x, w, b, act=act)
+    out = C.conv1d(x, w, b, stride=stride, act=act)
     torch.cuda.synchronize()
     assert C.LAUNCHES == before + 1
-    ref = C.conv1d_same_ref(x, w, b, act=act)
+    ref = C.conv1d_ref(x, w, b, stride=stride, act=act)
+    assert out.shape == ref.shape == (B, Cout, -(-L // stride))
     assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-4
+    r64 = C.conv1d_ref(x.double(), w.double(), b.double(), stride=stride, act=act)
+    assert float((out.double() - r64).abs().max() / r64.abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cout,cin,K", [(64, 256, 5), (2, 256, 5), (256, 2, 5), (7, 5, 3),
+                                        (1024, 512, 5), (200, 9, 9)])
+def test_pack_kernel_matches_pack_weight_on_card(cout, cin, K):
+    # bit for bit, special values included: the kernel splits on the bit
+    # pattern exactly as split_tf32 does
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the pack kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    w = torch.randn((cout, cin, K), generator=g, device="cuda")
+    specials = [float("inf"), -float("inf"), float("nan"), 1e-40, -3e-39, 0.0, -0.0, 3.4028235e38]
+    w.view(-1)[:len(specials)] = torch.tensor(specials, device="cuda")
+    for transposed in (False, True):
+        got, want = C._pack_on_card(w, transposed), C.pack_weight(w, transposed)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), transposed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,Cin,Cout,K,stride", [(8, 1024, 256, 64, 5, 2), (2, 255, 300, 7, 5, 1)])
+def test_kernel_is_bitwise_deterministic_on_card(B, L, Cin, Cout, K, stride):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the conv1d kernel has no CPU mode")
+    x, w, b = _card_inputs(B, L, Cin, Cout, K, seed=2)
+    assert torch.equal(C.conv1d(x, w, b, stride=stride), C.conv1d(x, w, b, stride=stride))
 
 
 @pytest.mark.gpu
@@ -250,8 +327,37 @@ def test_conv1d_train_grads_on_card_match_plain():
     x = torch.randn((4, 64, 200), generator=g, device="cuda", requires_grad=True)
     w = (torch.randn((96, 64, 5), generator=g, device="cuda") / 18).requires_grad_()
     b = torch.randn((96,), generator=g, device="cuda", requires_grad=True)
-    dy = torch.randn((4, 96, 200), generator=g, device="cuda")
-    got = torch.autograd.grad(C.conv1d_train(x, w, b), (x, w, b), dy)
-    ref = torch.autograd.grad(C.conv1d_same_ref(x, w, b), (x, w, b), dy)
-    for a, r in zip(got, ref):
-        assert float((a - r).abs().max() / r.abs().max()) <= 1e-4
+    for stride in (1, 2):
+        dy = torch.randn((4, 96, -(-200 // stride)), generator=g, device="cuda")
+        got = torch.autograd.grad(C.conv1d_train(x, w, b, stride), (x, w, b), dy)
+        ref = torch.autograd.grad(C.conv1d_ref(x, w, b, stride), (x, w, b), dy)
+        for a, r in zip(got, ref):
+            assert float((a - r).abs().max() / r.abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_conv1d_train_follows_optimizer_steps_on_card():
+    # a training step reuses the cached pack only while the weight is
+    # unchanged: the optimizer's in-place update forces a new pack for the
+    # forward and for dx
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the conv1d kernel has no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    from gennet_tpu_torch.train.cnn import adam
+
+    x, w, b = _card_inputs(4, 200, 64, 96, 5, seed=4)
+    x.requires_grad_()
+    w, b = torch.nn.Parameter(w), torch.nn.Parameter(b)
+    opt = adam([w, b], 1e-2, 0.5)
+    for _ in range(3):
+        dy = torch.randn((4, 96, 100), device="cuda")
+        out = C.conv1d_train(x, w, b, 2)
+        ref = C.conv1d_ref(x, w, b, 2)
+        assert float((out - ref).detach().abs().max() / ref.detach().abs().max()) <= 1e-4
+        got = torch.autograd.grad(out, (x, w, b), dy)
+        want = torch.autograd.grad(ref, (x, w, b), dy)
+        for a, r in zip(got, want):
+            assert float((a - r).abs().max() / r.abs().max()) <= 1e-4
+        opt.zero_grad()
+        w.grad, b.grad = got[1], got[2]
+        opt.step()

@@ -154,7 +154,9 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,K,T", [(8, 256, 128), (3907, 2049, 128), (7, 513, 256)])
+@pytest.mark.parametrize("B,K,T", [(8, 256, 128), (3907, 2049, 128), (7, 513, 256),
+                                   (8, 2049, 128), (8, 2049, 1024), (4096, 2049, 128),
+                                   (5, 300, 40)])
 def test_kernel_matches_plain_on_card(B, K, T):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the phasor kernel has no CPU mode")
@@ -170,6 +172,42 @@ def test_kernel_matches_plain_on_card(B, K, T):
     assert P.LAUNCHES == before + 1
     ref = P.phasor_matmul_ref(amp, ph, C, S)
     assert float((out - ref).abs().max() / ref.abs().max()) <= 2e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skip_amp,skip_ph", [(1, 1), (1, 2), (0, 3)])
+def test_kernel_takes_unaligned_row_views_on_card(skip_amp, skip_ph):
+    # contiguous row views of (B, 2049) tensors start 8196 bytes apart, so
+    # amp[1:] is not 16-byte aligned: the wrapper hands the kernel aligned
+    # copies, and the result is the plain version's
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the phasor kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, K, T = 300, 2049, 128
+    g = torch.Generator(device="cuda").manual_seed(5)
+    amp = torch.rand((B + skip_amp, K), generator=g, device="cuda")[skip_amp:]
+    ph = (1e3 * torch.randn((B + skip_ph, K), generator=g, device="cuda"))[skip_ph:]
+    C = torch.randn((K, T), generator=g, device="cuda") / K
+    S = torch.randn((K, T), generator=g, device="cuda") / K
+    assert amp.is_contiguous() and ph.is_contiguous()
+    out = P.phasor_matmul(amp, ph, C, S)
+    ref = P.phasor_matmul_ref(amp, ph, C, S)
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 2e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,K,T", [(8, 2049, 128), (4096, 2049, 1024)])
+def test_kernel_is_bitwise_deterministic_on_card(B, K, T):
+    # the bin axis is split across blocks at these shapes (B = 8) or not
+    # (pass B); the split sums in a fixed order, with no atomics
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the phasor kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    amp = torch.rand((B, K), generator=g, device="cuda")
+    ph = 1e3 * torch.randn((B, K), generator=g, device="cuda")
+    C = torch.randn((K, T), generator=g, device="cuda") / K
+    S = torch.randn((K, T), generator=g, device="cuda") / K
+    assert torch.equal(P.phasor_matmul(amp, ph, C, S), P.phasor_matmul(amp, ph, C, S))
 
 
 @pytest.mark.gpu
