@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship paths once on one CUDA card.
+"""Drive the PyTorch port's paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -20,9 +20,9 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    B = 8 (≤ 1e-4·max);
 5. conv kernel: the conv1d kernel against its plain version
    (``F.conv1d``, TF32 off; the strided layers through ``Conv1d``, flax
-   padding) at the flagship's seven conv shapes, forward at batch 8 and
-   256 (G Conv_0, D Conv_0 and D Conv_1 at their native stride 2) and dx
-   at batch 8, every activation at G Conv_3's and G Conv_0's shapes, and
+   padding) at the flagship's eight conv shapes (D Conv_0 at Cin 2 and,
+   for the raw-series D, Cin 1), forward at batch 8 and 256 (G Conv_0,
+   D Conv_0 and D Conv_1 at their native stride 2) and dx at batch 8, every activation at G Conv_3's and G Conv_0's shapes, and
    Cin 2048 (≤ 1e-4·max against plain, ≤ 1e-5·max against float64), two
    calls bitwise equal, with CUDA-event times;
 6. slice 1: ``train-bbh`` through the CLI at n_pix 1024 with the full-width
@@ -31,12 +31,26 @@ Phases, in order; any failure raises, so the exit code is non-zero:
 7. slice 2: the same with ``--conv-impl pallas`` and the posterior routes
    (ML recentering, likelihood resampling, ELBO library selection over two
    pooled snapshots), with both kernels' launch counts read around it;
-8. throughput (information): bank templates/s, PE steps/s, and GAN steps/s
-   with ``conv_impl`` xla and pallas in turns.
+8. slice 3: the same with ``--conv-impl pallas`` on the residual route (the
+   spectral residual loss, D on the raw series at Cin 1, the diversity
+   term, the terminal anneal, the early stop and the debug probes), with
+   both kernels' launch counts against the count the code implies, every
+   debug probe finite and D unmoved through the annealed half;
+9. slice 4: ``smoke`` through the CLI at the reference widths (n_pix 512,
+   50,000 signals, batch 64, grain 95, 4000 draws), 200 PE and 200 GAN
+   steps with ELBO selection and the anneal (cuDNN convs, as the JAX
+   burst models run ``nn.Conv``: neither kernel launches);
+10. throughput (information): bank templates/s, PE steps/s, GAN steps/s
+   with ``conv_impl`` xla and pallas in turns, each kernel's launches per
+   GAN step and per synthesis, and the burst PE and GAN steps/s.
 
-The line before the last is the kernels' JSON summary; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
-repository beside this file, it exits non-zero and prints no result.
+Every timed kernel call prints its bound: the larger of its operations
+over 165 TFLOP/s (the 3xTF32 ceiling: 495 TFLOP/s of TF32 over three
+products) and its bytes (each input read once, each output written once)
+over 3.35 TB/s, with the one that bounds it. The line before the last is
+the kernels' JSON summary; the last line is ``{"ok": true, "device":
+{...}}``. Without a CUDA card, or without the repository beside this
+file, it exits non-zero and prints no result.
 """
 
 import json
@@ -53,12 +67,16 @@ TOL = 2e-5            # max|kernel − plain| / max|plain| (tests/test_pallas_op
 CONV_TOL = 1e-4       # conv kernel and phasor VJP: float32 sums of Cin·K terms in other orders
 F64_TOL = 1e-5        # conv kernel against float64: 3xTF32 keeps float32-class accuracy
 PEAK_TOL = 1 / 64     # pass-A peak rows that may move (tests/test_torch_bank.py's bound)
+LIB_TOL = 1e-3        # the library call (irfft) against plain, of the maximum
 N_TIMED = 20          # timed repetitions (median) after warm-up
+PEAK_OPS = 165e12     # 3xTF32: the H100's 495 TFLOP/s of TF32 over three products
+PEAK_BYTES = 3.35e12  # the H100's HBM3 rate, bytes/s
 # (name, L in, Cin, Cout, stride) of the flagship's conv layers at n_pix 1024
+# (D Conv_0 at Cin 1: the raw-series D of pair_d=False, slice 3)
 CONV_LAYERS = [("G Conv_0", 1024, 256, 64, 2), ("G Conv_1", 1024, 64, 128, 1),
                ("G Conv_2", 1024, 128, 256, 1), ("G Conv_3", 1024, 256, 512, 1),
                ("G Conv_4", 1024, 512, 1024, 1), ("D Conv_0", 1024, 2, 256, 2),
-               ("D Conv_1", 512, 256, 512, 2)]
+               ("D Conv_1", 512, 256, 512, 2), ("D Conv_0 Cin 1", 1024, 1, 256, 2)]
 
 
 def conv_calls() -> list:
@@ -70,6 +88,25 @@ def conv_calls() -> list:
              for what, B, ci, co, s in (("fwd", 8, cin, cout, stride),
                                         ("fwd", 256, cin, cout, stride), ("dx", 8, cout, cin, 1))]
     return calls + [("Cin 2048", "fwd", 8, 1024, 2048, 64, 1)]
+
+
+def bound(flops: float, nbytes: float) -> tuple:
+    """(least ms the card could take, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phasor_cost(B: int, K: int, T: int) -> tuple:
+    """(flops, bytes) of one phasor call: two multiply-adds per (b, k, t);
+    amp, phase and both tables read, the output written."""
+    return 4.0 * B * K * T, 4.0 * (2 * B * K + 2 * K * T + B * T)
+
+
+def conv_cost(B: int, L: int, cin: int, cout: int, stride: int, K: int = 5) -> tuple:
+    """(flops, bytes) of one conv call: x, w, bias read, the output written."""
+    L_out = -(-L // stride)
+    return (2.0 * B * L_out * K * cin * cout,
+            4.0 * (B * cin * L + cout * cin * K + cout + B * cout * L_out))
 
 
 def fail(msg: str):
@@ -148,10 +185,75 @@ def read_rows(path):
         return [json.loads(line) for line in f]
 
 
+def steps_per_s(step, n=50) -> float:
+    """The rate of ``step()`` over ``n`` calls after 5 warm-up calls: the
+    host clock around synchronised runs."""
+    import torch
+
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def default_recipe_gans(n_pix, dev) -> tuple:
+    """(GANConfig, {conv_impl: GANState}): train-bbh's default recipe at
+    batch 8 under ``conv_impl`` xla and pallas, from the same seed."""
+    import torch
+
+    from gennet_tpu_torch.models import BBHGenerator, PairDiscriminator
+    from gennet_tpu_torch.train import gan as tgan
+
+    gan_cfg = tgan.GANConfig(n_pix=n_pix, label_smoothing=True, d_instance_noise=0.3,
+                             d_lr_scale=0.5, d_acc_gate=0.9)
+    return gan_cfg, {impl: tgan.init_gan(torch.Generator().manual_seed(2),
+                                         BBHGenerator(n_out=n_pix, conv_impl=impl),
+                                         PairDiscriminator(n_pix=n_pix, conv_impl=impl),
+                                         gan_cfg, dev)
+                     for impl in ("xla", "pallas")}
+
+
+def ml_recenter_seconds(g, dev) -> tuple:
+    """(wall s, phasor launches) of one ``ml_recenter`` call at the flagship
+    geometry: 300 Adam steps through the synthesis of 8 starts, 3 phasor
+    launches and one VJP a step."""
+    import numpy as np
+    import torch
+
+    from gennet_tpu_torch.data import template_bank as tb
+    from gennet_tpu_torch.eval import posterior_post as pp
+    from gennet_tpu_torch.ops import phasor_dft as P
+    from gennet_tpu_torch.physics import priors, psd as psd_mod
+
+    cfg = tb.BankConfig()
+    psd = psd_mod.analytic_advligo_psd(cfg.fs, cfg.T_obs * cfg.safe, device=dev)
+
+    def synth(sm):
+        sm = torch.as_tensor(sm, dtype=torch.float32, device=dev)
+        m1s, m2s = priors.mc_q_to_m1m2(torch.clamp(sm[:, 0], 5.0, 60.0),
+                                       torch.clamp(sm[:, 1], 0.2, 1.0))
+        return tb.make_templates_from_params(m1s, m2s, psd, cfg)
+
+    rng = np.random.default_rng(0)
+    event = synth([[28.1, 0.8]])[0] + torch.randn(cfg.n_out, generator=g, device=dev)
+    cloud = np.column_stack([rng.normal(28.5, 0.5, 4000), rng.uniform(0.6, 0.95, 4000)])
+    torch.cuda.synchronize()
+    P.LAUNCHES = 0
+    t0 = time.perf_counter()
+    pp.ml_recenter(cloud, synth, event, g)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, P.LAUNCHES
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "gennet_tpu_torch")):
         fail(f"no gennet_tpu_torch package beside {__file__}: run from a checkout")
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -229,7 +331,22 @@ def main():
     print("phasor determinism: two calls bitwise equal at pass A and pass B")
 
     amp = amp.contiguous()
-    times = {}
+    b_window = torch.tensor(b_weights, dtype=torch.float32, device=dev)
+
+    def phasor_library(a, ph):
+        """The same function as one library transform: irfft of the one-sided
+        spectrum a·e^{−iΨ} (the tables' convention), pass B's window slice."""
+        return torch.fft.irfft(torch.polar(a, -ph), n=N)[:, b_start:b_start + b_width] * b_window
+
+    lib_out = phasor_library(amp, phase_b)
+    lib_ref = P.phasor_matmul_ref(amp, phase_b, Cb, Sb)
+    lib_rel = float((lib_out - lib_ref).abs().max() / lib_ref.abs().max())
+    print(f"phasor library call (irfft of the spectrum, pass B slice): {lib_rel:.3e} of the "
+          f"maximum off plain (limit {LIB_TOL:g})")
+    if not lib_rel <= LIB_TOL:
+        fail(f"the irfft library call disagrees with the phasor's plain version ({lib_rel:.3e})")
+    del lib_out, lib_ref
+    times, bounds, lib_ms = {}, {}, {}
     for tag, n, (ph, C, S) in (("pass A", 4096, (phase, Ca, Sa)), ("pass B", 4096, (phase_b, Cb, Sb)),
                                ("pass A B=8", 8, (phase, Ca, Sa)), ("pass B B=8", 8, (phase_b, Cb, Sb))):
         a, ph = amp[:n].contiguous(), ph[:n].contiguous()
@@ -238,10 +355,17 @@ def main():
         k2 = cuda_ms(lambda: P.phasor_matmul(a, ph, C, S))
         p2 = cuda_ms(lambda: P.phasor_matmul_ref(a, ph, C, S))
         times[tag] = (min(k_ms, k2), min(p_ms, p2))
-        flops = 4.0 * n * a.shape[1] * C.shape[1]
+        flops, nbytes = phasor_cost(n, a.shape[1], C.shape[1])
+        bounds[tag] = bound(flops, nbytes)
+        extra = ""
+        if tag.startswith("pass B"):
+            lib_ms[tag] = cuda_ms(lambda: phasor_library(a, ph))
+            extra = f", library (irfft) {lib_ms[tag]:.3f} ms"
         print(f"time {tag} (B={n} K=2049 T={C.shape[1]}): kernel {k_ms:.3f}/{k2:.3f} ms, "
               f"plain {p_ms:.3f}/{p2:.3f} ms (median of {N_TIMED}, order kernel, plain, "
-              f"kernel, plain); kernel {flops / (min(k_ms, k2) * 1e-3) / 1e12:.2f} TFLOP/s "
+              f"kernel, plain){extra}; kernel {flops / (min(k_ms, k2) * 1e-3) / 1e12:.2f} TFLOP/s; "
+              f"bound {bounds[tag][0]:.4f} ms by {bounds[tag][1]} ({flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB), kernel at {bounds[tag][0] / min(k_ms, k2):.2f} of it "
               f"[{card}]")
 
     # ---- 4. phasor VJP: the kernel path's Function vs plain autograd ------
@@ -266,7 +390,7 @@ def main():
     # forwards at the layer's stride (the strided layers against Conv1d's
     # flax-padded strided F.conv1d), dx at stride 1 on the zero-stuffed dy
     torch.backends.cudnn.allow_tf32 = False
-    conv_err, conv_times = 0.0, {}
+    conv_err, conv_times, conv_bounds = 0.0, {}, {}
     calls = conv_calls()
     for name, what, B, L, ci, co, s in calls:
         x = torch.randn((B, ci, L), generator=g, device=dev)
@@ -280,13 +404,20 @@ def main():
         k2 = cuda_ms(lambda: CV.conv1d(x, w, b, stride=s))
         p2 = cuda_ms(lambda: CV.conv1d_ref(x, w, b, stride=s))
         conv_times[(name, what, B)] = (min(k1, k2), min(p1, p2))
-        flops = 2.0 * B * -(-L // s) * 5 * ci * co
+        flops, nbytes = conv_cost(B, L, ci, co, s)
+        conv_bounds[(name, what, B)] = bound(flops, nbytes)
+        bms, bby = conv_bounds[(name, what, B)]
+        if (name, what, B) == ("G Conv_4", "fwd", 8):
+            # the library call: one cuDNN F.conv1d (SAME at stride 1 is symmetric)
+            lib_ms["conv"] = cuda_ms(lambda: F.conv1d(x, w, b, padding=2))
         print(f"conv {name} {what} (B={B} L={L} Cin={ci} Cout={co} stride={s}): "
               f"max_abs_err={err:.3e} rel={rel:.3e} (limit {CONV_TOL:g}); vs float64: kernel "
               f"{e64[0]:.2e} (limit {F64_TOL:g}), plain {e64[1]:.2e}; kernel {k1:.3f}/{k2:.3f} ms, "
               f"plain {p1:.3f}/{p2:.3f} ms (median of {N_TIMED}, order kernel, plain, kernel, "
               f"plain); kernel {flops / (min(k1, k2) * 1e-3) / 1e12:.2f} TFLOP/s, plain "
-              f"{flops / (min(p1, p2) * 1e-3) / 1e12:.2f} TFLOP/s [{card}]")
+              f"{flops / (min(p1, p2) * 1e-3) / 1e12:.2f} TFLOP/s; bound {bms:.4f} ms by {bby} "
+              f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), kernel at "
+              f"{bms / min(k1, k2):.2f} of it [{card}]")
         del x, w, b
     print(f"conv determinism: two calls bitwise equal at all {len(calls)} shapes")
     for name, _, cin, cout, _ in CONV_LAYERS:  # the weight pack kernel vs its torch version
@@ -295,8 +426,8 @@ def main():
             if not torch.equal(CV._pack_on_card(w, transposed), CV.pack_weight(w, transposed)):
                 fail(f"conv {name}: the pack kernel differs from pack_weight "
                      f"(transposed={transposed})")
-    print("conv weight pack: the pack kernel equals pack_weight bit for bit at all 7 layers, "
-          "forward and dx forms")
+    print(f"conv weight pack: the pack kernel equals pack_weight bit for bit at all "
+          f"{len(CONV_LAYERS)} layers, forward and dx forms")
     for name, L, cin, cout, stride in (CONV_LAYERS[3], CONV_LAYERS[0]):  # every activation
         x = torch.randn((8, cin, L), generator=g, device=dev)
         w = torch.randn((cout, cin, 5), generator=g, device=dev) / math.sqrt(5 * cin)
@@ -404,7 +535,104 @@ def main():
         "selected_at", "plateau_k", "pool_ess", "pe_rms")}) + " elbo rows: "
         + json.dumps(elbo_rows))
 
-    # ---- 8. throughput (information, warm, same process) -------------------
+    # ---- 8. slice 3: --conv-impl pallas on the residual route ---------------
+    probes = ("d_grad_norm", "g_grad_norm", "res_grad_norm", "g_param_norm", "d_param_norm",
+              "x_fake_absmax", "d_logit_absmax", "bn_var_min")
+    gan_iters3, cadence3, eval3, anneal3 = 20, 5, 10, 0.5
+    with tempfile.TemporaryDirectory(dir=build) as out_dir:
+        argv = ["train-bbh", "--device", "cuda", "--n-pix", str(n_pix),
+                "--training-num", str(training_num), "--pe-iters", "20",
+                "--gan-iters", str(gan_iters3), "--cadence", str(cadence3), "--pe-cadence", "10",
+                "--eval-cadence", str(eval3), "--conv-impl", "pallas", "--res-loss-weight", "1.0",
+                "--res-spectral-bands", "16", "--pair-d", "false", "--diversity-weight", "0.1",
+                "--anneal-frac", str(anneal3), "--freeze-on-white", "0.99",
+                "--freeze-on-res", "1e-3", "--debug-probes", "true",
+                "--ckpt-every", "100000", "--plots", "false", "--out-dir", out_dir]
+        P.LAUNCHES = CV.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out3 = cli_main(argv)
+        torch.cuda.synchronize()
+        slice3_s = time.perf_counter() - t0
+        phasor_launches_3, conv_launches_3 = P.LAUNCHES, CV.LAUNCHES
+        rows3 = read_rows(os.path.join(out_dir, "bbh_metrics.jsonl"))
+    # conv kernel, from the code (train/gan.py::gan_update): per iteration the
+    # D step runs G (5 convs) without grad and D (2) on the real and on the
+    # fake series, whose backward launches D Conv_1's dx twice (D Conv_0's
+    # inputs need no grad); the residual route runs G forward (5) and back
+    # (5 dx: G Conv_0's input carries the Dense's grad); the G step runs G (5)
+    # and D (2) forward and 7 dx (D's 2, Conv_0's back to 1 channel; G's 5): 35. Each
+    # eval and the final draw run G in 16 chunks of 256 (5 launches each).
+    steps3 = out3["final_step"]
+    n_draws3 = steps3 // eval3 + 1
+    conv_expect3 = 35 * steps3 + 5 * math.ceil(4000 / 256) * n_draws3
+    print(f"slice 3: train-bbh --conv-impl pallas on the residual route finished in "
+          f"{slice3_s:.1f} s after {steps3} GAN steps (frozen_at {out3['frozen_at']}); conv "
+          f"kernel launches {conv_launches_3} (≥ {conv_expect3} expected: {steps3} iterations "
+          f"× 35 + {n_draws3} draws × 16 chunks × 5), phasor kernel launches "
+          f"{phasor_launches_3} (≥ {3 * n_synth} expected) [{card}]")
+    if conv_launches_3 < conv_expect3:
+        fail(f"slice 3 launched the conv kernel {conv_launches_3} times, "
+             f"expected ≥ {conv_expect3}")
+    if phasor_launches_3 < 3 * n_synth:
+        fail(f"slice 3 launched the phasor kernel {phasor_launches_3} times, "
+             f"expected ≥ {3 * n_synth}")
+    if not 0 < steps3 <= gan_iters3:
+        fail(f"slice 3: final_step {steps3} outside (0, {gan_iters3}]")
+    gan_rows3 = [r for r in rows3 if "res_loss" in r]
+    if len(gan_rows3) != steps3 // cadence3:
+        fail(f"slice 3: {len(gan_rows3)} GAN metric rows for {steps3} steps at cadence {cadence3}")
+    for r in gan_rows3:
+        bad = [k for k in probes if not (k in r and math.isfinite(r[k]))]
+        if bad:
+            fail(f"slice 3: debug probes absent or non-finite at step {r['step']}: {bad}")
+        if not r["res_loss"] > 0:
+            fail(f"slice 3: res_loss {r['res_loss']} at step {r['step']}")
+    # D is frozen from the first annealed iteration on: its norm after the
+    # last ordinary step (step anneal_start) holds through every later row
+    anneal_start = int(gan_iters3 * (1.0 - anneal3))
+    frozen_d = [(r["step"], r["d_param_norm"]) for r in gan_rows3 if r["step"] >= anneal_start]
+    if len(frozen_d) > 1 and len({v for _, v in frozen_d}) != 1:
+        fail(f"slice 3: D moved during the annealed half: d_param_norm {frozen_d}")
+    for key in ("beta", "grid_overlap"):
+        v = out3[key]
+        if not isinstance(v, float) or not 0.0 <= v <= 1.0:
+            fail(f"slice 3: {key} = {v!r}, expected a float in [0, 1]")
+    print("slice 3 summary: " + json.dumps({k: out3[k] for k in (
+        "final_step", "frozen_at", "beta", "grid_overlap", "cnn_sanity_beta", "pe_rms")})
+        + " annealed d_param_norm: " + json.dumps(frozen_d)
+        + " last GAN row: " + json.dumps(gan_rows3[-1]))
+
+    # ---- 9. slice 4: smoke through the CLI at the reference widths ----------
+    with tempfile.TemporaryDirectory(dir=build) as out_dir:
+        argv = ["smoke", "--device", "cuda", "--pe-iters", "200", "--gan-iters", "200",
+                "--cadence", "100", "--select-best", "elbo", "--anneal-frac", "0.25",
+                "--plots", "false", "--out-dir", out_dir]
+        P.LAUNCHES = CV.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out4 = cli_main(argv)
+        torch.cuda.synchronize()
+        slice4_s = time.perf_counter() - t0
+        launches_4 = (P.LAUNCHES, CV.LAUNCHES)
+        rows4 = read_rows(os.path.join(out_dir, "burst_metrics.jsonl"))
+    attempts4 = sum(1 for r in rows4 if r.get("step") == 200 and "res_loss" in r)
+    print(f"slice 4: smoke (n_pix 512, 50,000 signals, batch 64, grain 95, 4000 draws, 200 PE "
+          f"and 200 GAN steps, {attempts4} attempts) finished in {slice4_s:.1f} s; kernel "
+          f"launches phasor {launches_4[0]}, conv {launches_4[1]} (0 expected: the burst "
+          f"networks' convs are cuDNN) [{card}]")
+    if launches_4 != (0, 0):
+        fail(f"slice 4: the burst path launched the kernels {launches_4} times")
+    go = out4["grid_overlap"]
+    if not isinstance(go, float) or not 0.0 <= go <= 1.0:
+        fail(f"slice 4: grid_overlap = {go!r}, expected a float in [0, 1]")
+    if not all(math.isfinite(x) for x in out4["rms"]):
+        fail(f"slice 4: rms not finite: {out4['rms']}")
+    if not out4["whiteness"]:
+        fail("slice 4: no whiteness in the summary")
+    if out4["selected_route"] is None:
+        fail("slice 4: select_best=elbo selected no route")
+    print("slice 4 summary: " + json.dumps(out4))
+
+    # ---- 10. throughput (information, warm, same process) -------------------
     from gennet_tpu_torch.models import BBHGenerator, DualBranchPE, PairDiscriminator
     from gennet_tpu_torch.train import cnn as tcnn
     from gennet_tpu_torch.train import gan as tgan
@@ -418,53 +646,68 @@ def main():
     targets = torch.stack([params["mc"], params["q"]], -1).float()
     pe_cfg = tcnn.CNNConfig(n_pix=n_pix, ema_decay=0.999, lr_decay_steps=1000)
     pe = tcnn.init_cnn(torch.Generator().manual_seed(1), DualBranchPE(n_pix=n_pix), pe_cfg, dev)
-    gan_cfg = tgan.GANConfig(n_pix=n_pix, label_smoothing=True, d_instance_noise=0.3,
-                             d_lr_scale=0.5, d_acc_gate=0.9)
-    gans = {impl: tgan.init_gan(torch.Generator().manual_seed(2),
-                                BBHGenerator(n_out=n_pix, conv_impl=impl),
-                                PairDiscriminator(n_pix=n_pix, conv_impl=impl), gan_cfg, dev)
-            for impl in ("xla", "pallas")}
+    gan_cfg, gans = default_recipe_gans(n_pix, dev)
     measured = bank[-1] + torch.randn(n_pix, generator=g, device=dev)
-
-    def steps_per_s(step, n=50):
-        for _ in range(5):
-            step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-        return n / (time.perf_counter() - t0)
 
     pe_rate = steps_per_s(lambda: tcnn.cnn_step(pe, bank, targets, g, cfg=pe_cfg))
     gan_rates = {"xla": [], "pallas": []}
     for impl in ("xla", "pallas", "pallas", "xla"):
         gan_rates[impl].append(steps_per_s(
             lambda: tgan.gan_step(gans[impl], bank, measured, g, cfg=gan_cfg)))
-    # one ml_recenter call at the flagship geometry: 300 Adam steps through
-    # the synthesis of 8 starts, 3 phasor launches and one VJP per step
-    from gennet_tpu_torch.eval import posterior_post as pp
 
-    def synth(sm):
-        sm = torch.as_tensor(sm, dtype=torch.float32, device=dev)
-        m1s, m2s = priors.mc_q_to_m1m2(torch.clamp(sm[:, 0], 5.0, 60.0),
-                                       torch.clamp(sm[:, 1], 0.2, 1.0))
-        return tb.make_templates_from_params(m1s, m2s, psd, cfg)
-
-    rng = np.random.default_rng(0)
-    event = synth([[28.1, 0.8]])[0] + torch.randn(cfg.n_out, generator=g, device=dev)
-    cloud = np.column_stack([rng.normal(28.5, 0.5, 4000), rng.uniform(0.6, 0.95, 4000)])
+    # each kernel's launches per GAN step under pallas (default recipe and
+    # slice 3's residual route) and per synthesis
+    res_cfg = tgan.GANConfig(n_pix=n_pix, pair_discriminator=False, residual_route=True,
+                             res_loss_weight=1.0, res_spectral_bands=16, diversity_weight=0.1,
+                             label_smoothing=True, d_instance_noise=0.3, d_lr_scale=0.5,
+                             d_acc_gate=0.9)
+    res_gan = tgan.init_gan(torch.Generator().manual_seed(2),
+                            BBHGenerator(n_out=n_pix, conv_impl="pallas"),
+                            PairDiscriminator(n_pix=n_pix, in_ch=1, conv_impl="pallas"),
+                            res_cfg, dev)
+    res_rate = steps_per_s(lambda: tgan.gan_step(res_gan, bank, measured, g, cfg=res_cfg))
+    per_step = {}
+    for tag, st, c in (("default", gans["pallas"], gan_cfg), ("residual", res_gan, res_cfg)):
+        CV.LAUNCHES = 0
+        for _ in range(4):
+            tgan.gan_step(st, bank, measured, g, cfg=c)
+        per_step[tag] = CV.LAUNCHES / 4
     P.LAUNCHES = 0
-    t0 = time.perf_counter()
-    pp.ml_recenter(cloud, synth, event, g)
-    torch.cuda.synchronize()
-    mlrc_s, mlrc_launches = time.perf_counter() - t0, P.LAUNCHES
-    fmt = lambda r: "/".join(f"{x:.1f}" for x in r)
+    m8 = priors.sample_masses(g, 8, mdist=cfg.mdist)
+    tb.make_templates_from_params(m8["m1"], m8["m2"], psd, cfg)
+    per_synth = P.LAUNCHES
+
+    # the burst networks at the smoke workload's widths (n_pix 512, batch 64)
+    from gennet_tpu_torch.models import BurstDiscriminator, BurstGenerator, BurstPE
+    from gennet_tpu_torch.physics.burst import make_burst_bank
+
+    b_bank, b_pars = make_burst_bank(g, 50_000, N=512)
+    b_meas = b_bank[0] + 0.25 * torch.randn(512, generator=g, device=dev)
+    b_pe_cfg = tcnn.CNNConfig(n_pix=512, batch_size=64, lr=2e-4, noise_frac=0.5,
+                              noise_scale_max=0.5)
+    b_pe = tcnn.init_cnn(torch.Generator().manual_seed(1), BurstPE(n_pix=512), b_pe_cfg, dev)
+    b_gan_cfg = tgan.GANConfig(n_pix=512, batch_size=64, lr=2e-4, n_sig=0.25,
+                               pair_discriminator=False, residual_route=True,
+                               res_loss_weight=10.0, label_smoothing=True, d_lr_scale=0.5)
+    b_gan = tgan.init_gan(torch.Generator().manual_seed(2), BurstGenerator(n_out=512),
+                          BurstDiscriminator(n_pix=512), b_gan_cfg, dev)
+    burst_pe_rate = steps_per_s(lambda: tcnn.cnn_step(b_pe, b_bank, b_pars, g, cfg=b_pe_cfg))
+    burst_gan_rates = [steps_per_s(lambda: tgan.gan_step(b_gan, b_bank, b_meas, g, cfg=b_gan_cfg))
+                       for _ in range(2)]
+    mlrc_s, mlrc_launches = ml_recenter_seconds(g, dev)
+    fmt =lambda r: "/".join(f"{x:.1f}" for x in r)
     print(f"throughput: bank {bank_rate:.0f} templates/s (n_pix 1024, batches of 4096), "
           f"PE {pe_rate:.1f} steps/s (batch 8), GAN steps/s (batch 8, 50 steps each, order "
           f"xla, pallas, pallas, xla): xla {fmt(gan_rates['xla'])}, pallas "
           f"{fmt(gan_rates['pallas'])}; ml_recenter (300 steps, 8 starts, n_pix 1024) "
           f"{mlrc_s:.2f} s, {mlrc_launches} phasor launches [{card}]")
+    print(f"throughput: GAN pallas on slice 3's residual route {res_rate:.1f} steps/s (batch 8); "
+          f"conv kernel launches per GAN step under pallas: default recipe "
+          f"{per_step['default']:g}, residual route {per_step['residual']:g}; phasor kernel "
+          f"launches per synthesis {per_synth} [{card}]")
+    print(f"throughput: burst PE {burst_pe_rate:.1f} steps/s, burst GAN "
+          f"{fmt(burst_gan_rates)} steps/s (n_pix 512, batch 64, residual route, cuDNN convs, "
+          f"50 steps each) [{card}]")
 
     def worst(table):
         """The timed shape with the largest kernel / plain ratio."""
@@ -472,22 +715,30 @@ def main():
         return {"shape": " ".join(map(str, shape)) if isinstance(shape, tuple) else shape,
                 "ms": k, "plain_ms": p, "ratio": k / p}
 
-    # launches: slice 2, the path that runs both kernels; times: pass B and
+    # launches: slice 3, this slice's path, which runs both kernels (every
+    # path's count under launches_by_path); times and bounds: pass B and
     # G Conv_4's forward at batch 8, the largest call of each on the train path
     k_ms, p_ms = times["pass B"]
     ck_ms, cp_ms = conv_times[("G Conv_4", "fwd", 8)]
+    (pb_ms, pb_by), (cb_ms, cb_by) = bounds["pass B"], conv_bounds[("G Conv_4", "fwd", 8)]
     print(json.dumps({"kernels": [{
         "name": "phasor_irdft_f32", "route": "cuda",
         "source": "gennet_tpu_torch/csrc/phasor_irdft.cu",
         "replaces": "gennet_tpu/ops/phasor_dft.py:25",
-        "launches": phasor_launches, "max_abs_err": max(err_a, err_b), "ms": k_ms,
-        "plain_ms": p_ms, "ms_worst_ratio": worst(times),
+        "launches": phasor_launches_3, "max_abs_err": max(err_a, err_b), "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": lib_ms["pass B"],
+        "ms_worst_ratio": worst(times),
+        "launches_by_path": {"slice 1": launches, "slice 2": phasor_launches,
+                             "slice 3": phasor_launches_3, "slice 4": launches_4[0]},
     }, {
         "name": "conv1d_same_f32", "route": "cuda",
         "source": "gennet_tpu_torch/csrc/conv1d_same.cu",
         "replaces": "gennet_tpu/ops/pallas_conv1d.py:50",
-        "launches": conv_launches, "max_abs_err": conv_err, "ms": ck_ms, "plain_ms": cp_ms,
+        "launches": conv_launches_3, "max_abs_err": conv_err, "ms": ck_ms, "plain_ms": cp_ms,
+        "bound_ms": cb_ms, "bound_by": cb_by, "library_ms": lib_ms["conv"],
         "ms_worst_ratio": worst(conv_times),
+        "launches_by_path": {"slice 1": conv_launches_1, "slice 2": conv_launches,
+                             "slice 3": conv_launches_3, "slice 4": launches_4[1]},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

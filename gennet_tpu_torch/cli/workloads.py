@@ -1,15 +1,22 @@
-"""The flagship workload, ``train-bbh`` (port of ``gennet_tpu.cli.workloads``'s
-``run_bbh``; ref: BBH_version/bbhMahoGANy.py:959-1384).
+"""The two workloads (port of ``gennet_tpu.cli.workloads``).
 
-Synthetic GW150914-like event → 50k-template whitened bank → exact (mc, q)
-grid posterior and CNN sanity set → CNN point-estimator training → pair-GAN
-training → posterior draws (G → CNN, pooled over ``n_snapshots`` states),
-optionally post-processed by the truth-free routes of
-:mod:`gennet_tpu_torch.eval.posterior_post`, scored by β overlap, grid
-overlap, residual whiteness (and ELBO) at each eval cadence and at the
-end, with an ELBO-selected final cloud under ``select_best="elbo"``.
+- :func:`run_bbh`, ``train-bbh`` (ref: BBH_version/bbhMahoGANy.py:959-1384):
+  synthetic GW150914-like event → 50k-template whitened bank → exact
+  (mc, q) grid posterior and CNN sanity set → CNN point-estimator training
+  → GAN training (pair or raw-series D, optionally the residual route,
+  R1, the diversity term, a terminal anneal and the whiteness/res early
+  stop) → posterior draws (G → CNN, pooled over ``n_snapshots`` states),
+  optionally post-processed by the truth-free routes of
+  :mod:`gennet_tpu_torch.eval.posterior_post`, scored by β overlap, grid
+  overlap, residual whiteness (and ELBO) at each eval cadence and at the
+  end, with an ELBO-selected final cloud under ``select_best="elbo"``.
+- :func:`run_burst_smoke`, ``smoke`` (ref: tests/burstMahoGANy.py:569-901):
+  the sine-Gaussian burst, its analytic bank and exact (t0, τ) grid, the
+  burst CNN PE, the 3-loss GAN (raw-series D, residual route), posterior
+  draws scored against the grid, with the same early stop, restarts,
+  anneal and selection.
 
-``BBHConfig`` keeps every field and default of the JAX config, so the flags
+The configs keep every field and default of the JAX configs, so the flags
 are identical. Options this port does not implement yet raise
 ``NotImplementedError`` naming their ROADMAP item when set away from their
 defaults; none is silently ignored.
@@ -31,13 +38,16 @@ from gennet_tpu_torch.eval import grid_posterior as gp
 from gennet_tpu_torch.eval import overlap as ov
 from gennet_tpu_torch.eval import posterior_post as pp
 from gennet_tpu_torch.eval.whiteness import posterior_whiteness
-from gennet_tpu_torch.models import BBHGenerator, DualBranchPE, PairDiscriminator
+from gennet_tpu_torch.models import (BBHGenerator, BurstDiscriminator, BurstGenerator, BurstPE,
+                                     DualBranchPE, PairDiscriminator)
 from gennet_tpu_torch.physics import priors
 from gennet_tpu_torch.physics import psd as psd_mod
+from gennet_tpu_torch.physics.burst import make_burst_bank, sine_gaussian
 from gennet_tpu_torch.train.checkpoints import CheckpointManager, save_posterior_snapshot
-from gennet_tpu_torch.train.cnn import CNNConfig, cnn_step, init_cnn
+from gennet_tpu_torch.train.cnn import CNNConfig, cnn_step, init_cnn, normalize_max
 from gennet_tpu_torch.train.cnn import predict as cnn_predict
-from gennet_tpu_torch.train.gan import GANConfig, GANState, gan_step, init_gan, sample_generator
+from gennet_tpu_torch.train.gan import (GANConfig, GANState, gan_step, init_gan, knobs_from_cfg,
+                                        sample_generator)
 from gennet_tpu_torch.train.metrics import MetricLogger, fetch_metrics
 
 
@@ -116,30 +126,40 @@ _UNPORTED = {
     "bf16": "queue 1 #4 (reduced precision)",
     "comb_pe_model": "queue 1 #4 (CombinedPE)",
     "g_norm": "queue 1 #4 (group/none norm)",
-    "res_loss_weight": "queue 1 #6 (residual route)",
-    "res_eval_mode": "queue 1 #6 (residual route)",
-    "res_spectral_bands": "queue 1 #6 (residual route)",
-    "pair_d": "queue 1 #6 (residual route)",
-    "r1_gamma": "queue 1 #6 (R1)",
-    "diversity_weight": "queue 1 #6 (diversity)",
-    "anneal_frac": "queue 1 #6 (anneal)",
-    "freeze_on_res": "queue 1 #6 (early stop)",
-    "freeze_on_white": "queue 1 #6 (early stop)",
-    "debug_probes": "queue 1 #6 (debug probes)",
 }
 
 
+def _check_common(cfg):
+    """The ValueErrors both workloads share with the reference
+    (workloads.py:251-263, 1233-1245): a typo or an inert combination must
+    not fall back to other semantics."""
+    for name in ("select_best", "select_route"):
+        if getattr(cfg, name) not in ("", "elbo"):
+            raise ValueError(f"{name}={getattr(cfg, name)!r}: must be '' or 'elbo'")
+    if cfg.freeze_on_res > 0 and cfg.freeze_on_white <= 0:
+        raise ValueError("freeze_on_res > 0 requires freeze_on_white > 0: the res criterion "
+                         "is only evaluated inside the whiteness gate, so a res-only config "
+                         "would silently never freeze")
+
+
 def check_ported(cfg: BBHConfig):
-    """Raise ValueError for option values the reference refuses too, and
-    NotImplementedError for any option set away from its default that this
-    port does not implement yet, and for ``plots=True`` (plots are not
+    """Raise ValueError for option values the reference refuses too (and
+    for R1 under ``conv_impl="pallas"``, which the reference cannot run),
+    and NotImplementedError for any option set away from its default that
+    this port does not implement yet, and for ``plots=True`` (plots are not
     ported; pass ``--plots false``)."""
     if cfg.conv_impl not in ("xla", "pallas"):
         raise ValueError(f"conv_impl={cfg.conv_impl!r}: must be 'xla' or 'pallas'")
-    for name in ("select_best", "select_route"):
-        if getattr(cfg, name) not in ("", "elbo"):
-            # a typo would silently fall back to the default semantics (ref :1233-1240)
-            raise ValueError(f"{name}={getattr(cfg, name)!r}: must be '' or 'elbo'")
+    _check_common(cfg)
+    if not cfg.pair_d and cfg.res_loss_weight <= 0:
+        raise ValueError("pair_d=False requires res_loss_weight > 0: without the pair channel, "
+                         "the residual-moment route is the only term anchoring G to the "
+                         "measured event")
+    if cfg.r1_gamma > 0 and cfg.conv_impl == "pallas":
+        raise ValueError("r1_gamma > 0 with conv_impl='pallas': R1 differentiates D's input "
+                         "gradient again, and neither the conv kernel nor the reference's "
+                         "Pallas conv (conv1d_train) has a second derivative; use "
+                         "conv_impl='xla' for R1")
     defaults = BBHConfig()
     off = [f"{k} (ROADMAP {item})" for k, item in _UNPORTED.items()
            if getattr(cfg, k) != getattr(defaults, k)]
@@ -182,6 +202,25 @@ def _prepare_bbh_data(cfg: BBHConfig, gen: torch.Generator, device):
     bank = templates[:-1]
     targets = torch.stack([params["mc"][:-1], params["q"][:-1]], dim=-1).to(torch.float32)
     return bank, targets, signal, measured, norm, psd
+
+
+def _snapshot(state: GANState) -> GANState:
+    """A pooled snapshot: the port updates states in place, so it is a copy
+    of what sampling reads (G's weights and buffers, its EMA), on the
+    device."""
+    return GANState(generator=copy.deepcopy(state.generator), discriminator=None,
+                    g_opt=None, d_opt=None, g_res_opt=None,
+                    g_ema=copy.deepcopy(state.g_ema), step=state.step)
+
+
+def _anneal_knobs(gan_cfg: GANConfig, cfg):
+    """(base knobs, terminal-anneal knobs, first annealed step index): for
+    the last ``anneal_frac`` of the iterations D is frozen (gate −1) and G's
+    adversarial term is off, so the final state settles on the residual
+    route (ref :436-439, 1592-1596)."""
+    base = knobs_from_cfg(gan_cfg)
+    return (base, dataclasses.replace(base, d_acc_gate=-1.0, adv_weight=0.0),
+            int(cfg.gan_iters * (1.0 - cfg.anneal_frac)))
 
 
 def run_bbh(cfg: BBHConfig, *, device):
@@ -271,11 +310,17 @@ def run_bbh(cfg: BBHConfig, *, device):
     inoise = n_sig_eff if cfg.instance_noise < 0 else cfg.instance_noise
     gan_cfg = GANConfig(n_pix=cfg.n_pix, batch_size=cfg.batch_size, lr=cfg.gan_lr or cfg.lr,
                         chi_loss=cfg.chi_loss, n_sig=n_sig_eff,
+                        pair_discriminator=cfg.pair_d,
                         label_smoothing=cfg.label_smoothing, d_instance_noise=inoise,
                         d_lr_scale=cfg.d_lr_scale, d_acc_gate=cfg.d_acc_gate,
-                        g_ema_decay=cfg.g_ema_decay)
+                        diversity_weight=cfg.diversity_weight, r1_gamma=cfg.r1_gamma,
+                        residual_route=cfg.res_loss_weight > 0,
+                        res_loss_weight=cfg.res_loss_weight, res_eval_mode=cfg.res_eval_mode,
+                        res_spectral_bands=cfg.res_spectral_bands,
+                        g_ema_decay=cfg.g_ema_decay, debug_probes=cfg.debug_probes)
     G = BBHGenerator(n_out=cfg.n_pix, norm=cfg.g_norm, conv_impl=cfg.conv_impl)
-    D = PairDiscriminator(n_pix=cfg.n_pix, conv_impl=cfg.conv_impl)
+    D = PairDiscriminator(n_pix=cfg.n_pix, in_ch=2 if cfg.pair_d else 1,
+                          conv_impl=cfg.conv_impl)
     gan_state = init_gan(torch.Generator().manual_seed(cfg.seed + 2), G, D, gan_cfg, device)
     gan_ckpt = CheckpointManager(os.path.join(cfg.out_dir, "ckpt_gan"))
     if cfg.posterior_drate >= 0.0:
@@ -284,14 +329,7 @@ def run_bbh(cfg: BBHConfig, *, device):
         samp_dropout = True
     else:
         G_samp, samp_dropout = G, cfg.posterior_dropout
-    # the port updates states in place, so a pooled snapshot is a copy of
-    # what sampling reads (G's weights and buffers, its EMA), on the device
     snapshots = deque(maxlen=max(1, cfg.n_snapshots))
-
-    def snapshot(state):
-        return GANState(generator=copy.deepcopy(state.generator), discriminator=None,
-                        g_opt=None, d_opt=None, g_res_opt=None,
-                        g_ema=copy.deepcopy(state.g_ema), step=state.step)
 
     def synth(sm):
         # clip to where the PhenomD fits are sane (the hunt_constrain prior is
@@ -397,19 +435,22 @@ def run_bbh(cfg: BBHConfig, *, device):
         log.log(step, row if tag is None else {f"{k}_{tag}": v for k, v in row.items()})
         return out
 
+    base_knobs, anneal_knobs, anneal_start = _anneal_knobs(gan_cfg, cfg)
     gan_bank = gan_real_bank(cfg, bank, signal)
     beta_hist = []
     best_white, best_state_dict = -1.0, None
     sel_score, sel_step = float("-inf"), None
+    frozen_at = None
     log.steps_per_sec(0)  # reset the steps/sec window for the GAN phase
     for i in range(1, cfg.gan_iters + 1):  # i counts completed iterations
-        gan_state, m = gan_step(gan_state, gan_bank, measured, gen, cfg=gan_cfg)
+        knobs = anneal_knobs if (cfg.anneal_frac > 0 and i - 1 >= anneal_start) else base_knobs
+        gan_state, m = gan_step(gan_state, gan_bank, measured, gen, knobs, cfg=gan_cfg)
         if i % cfg.cadence == 0:
             mh = fetch_metrics(m)
             log.log(i, mh)
             print(log.status_line(i, mh, log.steps_per_sec(i)))
         if i % cfg.eval_cadence == 0:
-            snapshots.append(snapshot(gan_state))
+            snapshots.append(_snapshot(gan_state))
             ev = eval_posterior(list(snapshots), i)
             if ev["whiteness"] > best_white:
                 best_white = ev["whiteness"]
@@ -417,6 +458,17 @@ def run_bbh(cfg: BBHConfig, *, device):
                                                             gan_state.generator.state_dict().items()}}
             if ev.get("elbo", float("-inf")) > sel_score:
                 sel_score, sel_step = ev["elbo"], i
+            # combined early stop (ref :1648-1661): white draws AND a converged
+            # raw residual loss of the newest step (freeze_on_res ≤ 0: whiteness only)
+            res_raw = float(m["res_loss"]) / max(cfg.res_loss_weight, 1e-30)
+            res_ok = cfg.freeze_on_res <= 0 or 0.0 < res_raw < cfg.freeze_on_res
+            if (cfg.freeze_on_white > 0 and ev["whiteness"] >= cfg.freeze_on_white
+                    and res_ok):
+                frozen_at = i
+                print(f"residuals white ({ev['whiteness']:.3f} ≥ {cfg.freeze_on_white}, "
+                      f"raw res_loss {res_raw:.2e}) — training frozen at {i}")
+                gan_ckpt.save(i, gan_state)
+                break
             if ev["beta"] is not None:
                 beta_hist.append(ev["beta"])
                 print(f"beta result: {ev['beta']}" +
@@ -488,7 +540,7 @@ def run_bbh(cfg: BBHConfig, *, device):
         "grid_overlap": grid_overlap_final,
         "cnn_sanity_beta": cnn_sanity_beta,
         "final_step": int(gan_state.step),
-        "frozen_at": None,
+        "frozen_at": frozen_at,
         "selected_at": sel_step,                 # in-run ELBO argmax (diagnostic)
         "selected_route": sel_route_name,        # library candidate chosen
         "pool_ess": (sel_info or {}).get("pool_ess"),
@@ -497,3 +549,314 @@ def run_bbh(cfg: BBHConfig, *, device):
         "pe_rms": pe_rms,
         "pe_std": pe_std,
     }
+
+
+# ---------------------------------------------------------------------------
+# the burst smoke workload
+
+
+@dataclass
+class BurstSmokeConfig:
+    """``smoke`` workload config (ref defaults: burstMahoGANy.py:31-48). Field
+    meanings, with the measurements behind each default, are documented on
+    ``gennet_tpu.cli.workloads.BurstSmokeConfig``."""
+
+    n_pix: int = 512
+    n_signals: int = 50_000
+    n_sig: float = 0.25
+    batch_size: int = 64
+    gan_iters: int = 50_000
+    pe_iters: int = 60_000
+    lr: float = 2e-4
+    cadence: int = 100
+    pe_grain: int = 95
+    n_posterior: int = 4000
+    label_smoothing: bool = True
+    instance_noise: float = 0.0       # < 0: n_sig
+    d_lr_scale: float = 0.5
+    d_acc_gate: float = 0.0
+    diversity_weight: float = 0.0
+    r1_gamma: float = 0.0
+    res_loss_weight: float = 10.0
+    posterior_temp: float = 1.0
+    per_sample_max: bool = False
+    snapshot_every: int = 1           # pool a snapshot every k-th cadence point
+    n_snapshots: int = 1
+    g_ema_decay: float = 0.0
+    posterior_dropout: bool = False
+    posterior_drate: float = -1.0
+    posterior_noise: float = 0.0
+    pe_noise_frac: float = 0.5
+    pe_debias: int = 0
+    pe_bootcal: int = 0
+    pe_mlrc: int = 0
+    reweight_temper: float = 0.0
+    pe_no_norm: bool = True
+    freeze_on_res: float = 2e-5       # raw (unweighted) res_loss bound of the early stop
+    gan_restarts: int = 2             # fresh-init reruns after an unconverged schedule
+    freeze_on_white: float = 0.99     # whiteness score that freezes training
+    anneal_frac: float = 0.0
+    select_best: str = ""
+    select_route: str = ""
+    cnn_cache: str | None = None
+    eval_every: int = 1               # posterior draw every k-th cadence point
+    debug_probes: bool = False
+    out_dir: str = "out/burst"
+    seed: int = 0
+    plots: bool = True
+
+
+def check_burst_ported(cfg: BurstSmokeConfig):
+    """The reference's three ValueErrors, then NotImplementedError for the
+    options this port does not implement yet (the CNN cache; ``plots``)."""
+    _check_common(cfg)
+    off = []
+    if cfg.cnn_cache is not None:
+        off.append("cnn_cache (ROADMAP queue 1 #7 (restore))")
+    if cfg.plots:
+        off.append("plots (ROADMAP queue 1 #13; pass --plots false)")
+    if off:
+        raise NotImplementedError("not ported yet: " + "; ".join(off))
+
+
+# the exact grid's parameter box (burst_grid_posterior's defaults): the
+# library selection's search-window prior
+_BURST_BOUNDS = ((0.25, 0.75), (1.0 / 60.0, 1.0 / 15.0))
+
+
+def run_burst_smoke(cfg: BurstSmokeConfig, *, device):
+    """The burst mahoGANy on ``device`` (ref: tests/burstMahoGANy.py:569-901):
+    analytic bank and event, exact (t0, τ) grid, CNN PE, the 3-loss GAN with
+    early stop, restarts and terminal anneal, posterior draws scored
+    against the grid. Returns the same summary dict as the JAX workload.
+
+    Step labels count completed iterations, as in :func:`run_bbh` (the JAX
+    loop labels an unchunked run's cadence points one step early).
+    """
+    check_burst_ported(cfg)
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cfg.seed)
+    os.makedirs(cfg.out_dir, exist_ok=True)
+    log = MetricLogger(cfg.out_dir, "burst")
+    snap_dir = os.path.join(cfg.out_dir, "GAN_posterior_samples")
+
+    # training bank and the fixed event (ref: :581,614-631)
+    bank, pars = make_burst_bank(gen, cfg.n_signals, N=cfg.n_pix)
+    signal = sine_gaussian(0.5, 1.0 / 25.0, N=cfg.n_pix, device=device)
+    measured = signal + cfg.n_sig * torch.randn(signal.shape, generator=gen, device=device)
+    # exact grid posterior (ref: :716-726)
+    L, gx, gy = gp.burst_grid_posterior(measured, cfg.n_sig, cfg.pe_grain)
+    measured_np, signal_np = measured.cpu().numpy(), signal.cpu().numpy()
+
+    def synth(s):
+        s = torch.as_tensor(s, dtype=torch.float32, device=device)
+        return sine_gaussian(s[:, 0], s[:, 1], N=cfg.n_pix)
+
+    # ---- CNN PE (ref: :732-771) ------------------------------------------
+    pe_cfg = CNNConfig(n_pix=cfg.n_pix, batch_size=cfg.batch_size, lr=cfg.lr,
+                       noise_frac=cfg.pe_noise_frac, noise_scale_max=2.0 * cfg.n_sig,
+                       max_normalize=not cfg.pe_no_norm, max_per_sample=cfg.per_sample_max)
+    pe_state = init_cnn(torch.Generator().manual_seed(cfg.seed + 1), BurstPE(n_pix=cfg.n_pix),
+                        pe_cfg, device)
+    for i in range(1, cfg.pe_iters + 1):  # i counts completed updates
+        pe_state, m = cnn_step(pe_state, bank, pars, gen, cfg=pe_cfg)
+        if i % cfg.cadence == 0:
+            m = fetch_metrics(m)
+            log.log(i, m)
+            print(log.status_line(i, m, log.steps_per_sec(i)))
+    # PE accuracy on the bank
+    est = cnn_predict(pe_state, bank[:4000]).cpu().numpy()
+    tgt = pars[:4000].cpu().numpy()
+    rms = [float(np.mean((tgt[:, k] - est[:, k]) ** 2)) for k in range(2)]
+    pe_std = [float(np.mean(np.abs(tgt[:, k] - est[:, k]))) for k in range(2)]
+    print(f"Completed CNN PE  RMS: {rms[0]:f},{rms[1]:f}")
+
+    def cnn(w):
+        return cnn_predict(pe_state, normalize_max(w, pe_cfg))
+
+    # ---- GAN (ref: :779-899) ---------------------------------------------
+    inoise = cfg.n_sig if cfg.instance_noise < 0 else cfg.instance_noise
+    gan_cfg = GANConfig(n_pix=cfg.n_pix, batch_size=cfg.batch_size, lr=cfg.lr, n_sig=cfg.n_sig,
+                        pair_discriminator=False, residual_route=True,
+                        label_smoothing=cfg.label_smoothing, d_instance_noise=inoise,
+                        d_lr_scale=cfg.d_lr_scale, d_acc_gate=cfg.d_acc_gate,
+                        diversity_weight=cfg.diversity_weight, r1_gamma=cfg.r1_gamma,
+                        res_loss_weight=cfg.res_loss_weight, g_ema_decay=cfg.g_ema_decay,
+                        debug_probes=cfg.debug_probes)
+    G = BurstGenerator(n_out=cfg.n_pix)
+    D = BurstDiscriminator(n_pix=cfg.n_pix)
+    gan_state = init_gan(torch.Generator().manual_seed(cfg.seed + 2), G, D, gan_cfg, device)
+    snapshots = deque(maxlen=max(1, cfg.n_snapshots))
+    # posterior sampler: optionally a weaker-dropout clone of G (the same
+    # weights; GaussianDropout carries none)
+    if cfg.posterior_drate >= 0.0:
+        G_samp, samp_dropout = BurstGenerator(n_out=cfg.n_pix, drate=cfg.posterior_drate), True
+    else:
+        G_samp, samp_dropout = G, cfg.posterior_dropout
+
+    def draw_posterior(states):
+        """Posterior cloud pooled over snapshot states."""
+        per = cfg.n_posterior if len(states) == 1 else max(cfg.n_posterior // len(states), 64)
+        wf = torch.cat([sample_generator(G_samp, snap, gen, per, gan_cfg, dropout=samp_dropout,
+                                         temp=cfg.posterior_temp) for snap in states])
+        wf_in = wf
+        if cfg.posterior_noise > 0:
+            # parametric bootstrap: fresh measurement-scale noise on each draw
+            wf_in = wf + cfg.posterior_noise * cfg.n_sig * torch.randn(
+                wf.shape, generator=gen, device=gen.device)
+        samples = cnn(wf_in).cpu().numpy()
+        route_elbo = None  # select_route's score for the returned cloud
+        if cfg.select_route == "elbo":
+            route, samples, scores = pp.select_route(
+                samples, synth, cnn, measured, cfg.n_sig, gen,
+                temper=cfg.reweight_temper if cfg.reweight_temper > 0 else 1.0)
+            route_elbo = scores[route]
+            print(f"auto route: {route} (ELBO {route_elbo:.1f})")
+        else:
+            if cfg.pe_debias > 0:
+                samples = pp.self_calibrate(samples, synth, cnn, gen, cfg.n_sig,
+                                            rounds=cfg.pe_debias)
+            if cfg.pe_bootcal > 0:
+                samples = pp.bootstrap_calibrate(samples, synth, cnn, gen, cfg.n_sig)
+            if cfg.pe_mlrc > 0:
+                samples = pp.ml_recenter(samples, synth, measured, gen)
+            if cfg.reweight_temper > 0:
+                ess = pp.effective_sample_size(samples, synth, measured, cfg.n_sig,
+                                               cfg.reweight_temper)
+                samples = pp.likelihood_resample(samples, synth, measured, cfg.n_sig, gen,
+                                                 temper=cfg.reweight_temper)
+                print(f"likelihood resample ESS: {ess:.1f}/{len(samples)}")
+        return wf, samples, route_elbo
+
+    base_knobs, anneal_knobs, anneal_start = _anneal_knobs(gan_cfg, cfg)
+    gm = gp.grid_moments(L, gx, gy)
+    best_score = -1.0
+    sel_score, sel_step = float("-inf"), None
+    frozen_at = None
+    log.steps_per_sec(0)  # reset the steps/sec window for the GAN phase
+    # up to gan_restarts fresh-init attempts while a whole schedule ends
+    # unconverged; snapshots and the cadence count reset per attempt (a
+    # pooled cloud must not mix generators of different inits)
+    max_attempts = 1 + (cfg.gan_restarts if cfg.freeze_on_white > 0 else 0)
+    for attempt in range(max_attempts):
+        if attempt:
+            print(f"schedule ended unconverged — random restart {attempt}")
+            gan_state = init_gan(torch.Generator().manual_seed(cfg.seed + 1000 + attempt),
+                                 G, D, gan_cfg, device)
+            snapshots.clear()
+            # the on-disk cloud history stays a single trajectory
+            for path in glob.glob(os.path.join(snap_dir, "posterior_samples_*.npz")):
+                os.remove(path)
+        n_cad = 0
+        for i in range(1, cfg.gan_iters + 1):  # i counts completed iterations
+            knobs = anneal_knobs if (cfg.anneal_frac > 0 and i - 1 >= anneal_start) else base_knobs
+            gan_state, m = gan_step(gan_state, bank, measured, gen, knobs, cfg=gan_cfg)
+            if i % cfg.cadence != 0:
+                continue
+            mh = fetch_metrics(m)
+            log.log(i, mh)
+            print(log.status_line(i, mh, log.steps_per_sec(i)))
+            n_cad += 1
+            if n_cad % max(1, cfg.snapshot_every) == 0:
+                snapshots.append(_snapshot(gan_state))
+            if n_cad % max(1, cfg.eval_every) != 0:
+                continue
+            wf, samples, route_elbo = draw_posterior(list(snapshots) or [gan_state])
+            save_posterior_snapshot(snap_dir, i, samples)
+            # cloud diagnostics against the exact grid: bias (mean offset in
+            # exact-σ units) and dispersion ratio per parameter
+            wf_np = wf.cpu().numpy().reshape(wf.shape[0], -1)
+            diag = {
+                "bias_t0": (float(samples[:, 0].mean()) - gm[0]) / max(gm[2], 1e-12),
+                "bias_tau": (float(samples[:, 1].mean()) - gm[1]) / max(gm[3], 1e-12),
+                "disp_t0": float(samples[:, 0].std()) / max(gm[2], 1e-12),
+                "disp_tau": float(samples[:, 1].std()) / max(gm[3], 1e-12),
+                "wf_corr": float(np.mean(
+                    np.sum(wf_np * signal_np[None, :], axis=1)
+                    / (np.linalg.norm(wf_np, axis=1) * np.linalg.norm(signal_np) + 1e-30))),
+            }
+            # degenerate-output guard (ref: bbhMahoGANy.py:1354-1355)
+            if samples[:, 0].var() > 0 and samples[:, 1].var() > 0:
+                score = gp.grid_overlap_score(samples, L, gx, gy)
+                diag["grid_overlap"] = score
+                print(f"grid overlap: {score:.4f}  "
+                      f"bias: ({diag['bias_t0']:+.2f}, {diag['bias_tau']:+.2f})σ  "
+                      f"disp: ({diag['disp_t0']:.2f}, {diag['disp_tau']:.2f})×  "
+                      f"wf_corr: {diag['wf_corr']:.4f}")
+                best_score = max(best_score, score)
+                if cfg.select_best == "elbo":
+                    # inside the guard: a collapsed cloud is never selectable
+                    elbo = route_elbo if route_elbo is not None else \
+                        pp.elbo_score(samples, synth, measured, cfg.n_sig)
+                    if np.isfinite(elbo):
+                        diag["elbo"] = elbo
+                    print(f"cloud ELBO: {elbo:.1f}")
+                    if elbo > sel_score:
+                        sel_score, sel_step = elbo, i
+            if cfg.freeze_on_white > 0:
+                # the posterior-mean waveform's residual (eval/whiteness)
+                # AND a converged raw residual loss
+                ws = posterior_whiteness(measured_np / cfg.n_sig, wf_np[:256] / cfg.n_sig, 1.0)
+                w = (ws["mean_pass"] + ws["var_pass"] + ws["ljung_box_pass"]) / 3.0
+                diag["whiteness"] = w
+                res_raw = mh["res_loss"] / max(cfg.res_loss_weight, 1e-30)
+                res_ok = cfg.freeze_on_res <= 0 or 0.0 < res_raw < cfg.freeze_on_res
+                if w >= cfg.freeze_on_white and res_ok:
+                    frozen_at = i
+                    log.log(i, diag)
+                    print(f"residuals white ({w:.3f} ≥ {cfg.freeze_on_white},"
+                          f" raw res_loss {res_raw:.2e}) — training frozen at {i}")
+                    break
+            log.log(i, diag)
+        if frozen_at is not None:
+            break
+
+    # ---- final state (the reference scores the last iteration's state) ---
+    whiteness, final_score = None, 0.0
+    sel_route_name, sel_info = None, None
+    if cfg.gan_iters > 0:
+        final_states = [gan_state]
+        if cfg.n_snapshots > 1 and snapshots:
+            final_states = list(snapshots) + (
+                [] if snapshots[-1].step == gan_state.step else [gan_state])
+        wf, samples, _ = draw_posterior(final_states)
+        if cfg.select_best == "elbo":
+            # candidate-library selection over the saved per-eval clouds and
+            # the trained-final cloud (posterior_post.select_final_cloud)
+            clouds = {}
+            for path in glob.glob(os.path.join(snap_dir, "posterior_samples_*.npz")):
+                st = int(path.rsplit("_", 1)[1].split(".")[0])
+                if st <= cfg.gan_iters:  # skip a previous run's final (+1)
+                    clouds[st] = np.load(path)["samples"]
+            sel_route_name, chosen, sel_info = pp.select_final_cloud(
+                clouds, synth, measured, cfg.n_sig, gen, extra={"final": np.asarray(samples)},
+                bounds=_BURST_BOUNDS)
+            if chosen is not None and sel_route_name != "final":
+                samples = np.asarray(chosen)
+                wf = synth(samples[:256])
+            if sel_info:
+                print(f"library-selected posterior: {sel_route_name} (scores {{"
+                      + ", ".join(f"{k}: {v:.1f}" for k, v in sel_info["scores"].items())
+                      + f"}}, plateau K={len(sel_info.get('plateau_members', []))}, "
+                      f"pool ESS {sel_info.get('pool_ess', 0.0):.0f})")
+        save_posterior_snapshot(snap_dir, cfg.gan_iters + 1, samples)  # +1: the final cloud
+        if samples[:, 0].var() > 0 and samples[:, 1].var() > 0:
+            final_score = gp.grid_overlap_score(samples, L, gx, gy)
+        log.log(cfg.gan_iters, {"grid_overlap_final": final_score})
+        print(f"final-state grid overlap: {final_score:.4f}")
+        # residual whiteness: h(t) − x_gen should be N(0, n_sig²) white
+        whiteness = posterior_whiteness(measured_np / cfg.n_sig,
+                                        wf.cpu().numpy() / cfg.n_sig, 1.0)
+        print(f"residual whiteness: {whiteness}")
+
+    log.close()
+    return {"rms": rms, "pe_std": pe_std,
+            "grid_overlap": final_score,          # final-state score (the gate)
+            "grid_overlap_best": best_score,      # best cadence state (diagnostic)
+            "frozen_at": frozen_at,               # early-stop step (None = ran full)
+            "selected_at": sel_step,              # in-run ELBO argmax step (diagnostic)
+            "selected_route": sel_route_name,     # library candidate chosen (None = off)
+            "pool_ess": (sel_info or {}).get("pool_ess"),
+            "plateau_k": len((sel_info or {}).get("plateau_members", [])) or None,
+            "whiteness": whiteness}

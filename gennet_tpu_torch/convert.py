@@ -1,4 +1,5 @@
-"""Flax parameter trees → PyTorch ``state_dict``s for G, D and the CNN PE.
+"""Flax parameter trees → PyTorch ``state_dict``s for G, D and the CNN PE,
+of the flagship and of the burst ``smoke`` workload.
 
 Inputs are nested dicts of numpy arrays (as ``jax.device_get`` returns
 them); outputs are ``{name: torch.Tensor}`` for ``load_state_dict``. The
@@ -65,3 +66,26 @@ def flax_to_torch_pe(params, batch_stats=None) -> dict:
     for i in range(5):
         sd.update(_conv(params[f"Conv_{4 + i}"], f"q_convs.{i}"))
     return sd
+
+
+def flax_to_torch_burst_generator(params, batch_stats=None) -> dict:
+    """BurstGenerator: Dense_0, Conv_0..n (the last is the 1-channel output
+    conv); no batch stats."""
+    n_conv = sum(1 for k in params if k.startswith("Conv_"))
+    sd = _dense(params["Dense_0"], "dense")
+    for i in range(n_conv - 1):
+        sd.update(_conv(params[f"Conv_{i}"], f"convs.{i}"))
+    sd.update(_conv(params[f"Conv_{n_conv - 1}"], "out_conv"))
+    return sd
+
+
+def flax_to_torch_burst_discriminator(params, batch_stats=None) -> dict:
+    """BurstDiscriminator: Conv_0, Conv_1, Dense_0, Dense_1."""
+    return {**_conv(params["Conv_0"], "conv0"), **_conv(params["Conv_1"], "conv1"),
+            **_dense(params["Dense_0"], "dense0"), **_dense(params["Dense_1"], "dense1")}
+
+
+def flax_to_torch_burst_pe(params, batch_stats=None) -> dict:
+    """BurstPE: Conv_0, Conv_1, Dense_0, Dense_1 (the same names as
+    BurstDiscriminator's)."""
+    return flax_to_torch_burst_discriminator(params)

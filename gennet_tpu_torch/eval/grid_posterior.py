@@ -1,7 +1,9 @@
-"""Exact (mc, q) grid posterior of the synthetic flagship event and the
-grid-based scores (port of ``gennet_tpu.eval.grid_posterior``'s BBH part).
+"""Exact grid posteriors and the grid-based scores (port of
+``gennet_tpu.eval.grid_posterior``): the (t0, τ) grid of the ``smoke``
+workload's sine-Gaussian burst and the (mc, q) grid of the synthetic
+flagship event.
 
-The synthetic event is built by the same template pipeline (event-twin
+The synthetic flagship event is built by the same template pipeline (event-twin
 template + N(0, σ) whitened noise, peak at the safe-window centre), so the
 Gaussian likelihood over a grid of templates synthesised at that peak index
 is exact ground truth (the flagship analogue of
@@ -14,6 +16,30 @@ import torch
 from gennet_tpu_torch.data import template_bank as tb
 from gennet_tpu_torch.eval.overlap import gaussian_kde_pdf
 from gennet_tpu_torch.physics import priors
+
+
+def burst_grid_posterior(measured, n_sig: float = 0.25, grain: int = 95,
+                         t0_range=(0.25, 0.75), tau_range=(1.0 / 60.0, 1.0 / 15.0)):
+    """Exact (t0, τ) likelihood grid of the sine-Gaussian burst,
+    L ∝ exp(−½ Σ_t ((d − h(t0, τ)) / σ)²) normalised to max 1
+    (ref: burstMahoGANy.py:716-726), in float64 numpy on the host with
+    t = n/512, as the JAX package evaluates it.
+
+    Returns (L (grain, grain) with axes (τ, t0), as the reference
+    transposes it, t0 grid, τ grid).
+    """
+    t0 = np.linspace(*t0_range, grain)
+    tau = np.linspace(*tau_range, grain)
+    T0, TAU = np.meshgrid(t0, tau, indexing="ij")
+    d = (measured.detach().cpu().numpy() if isinstance(measured, torch.Tensor)
+         else np.asarray(measured)).astype(np.float64).reshape(1, -1)
+    t = np.arange(d.shape[-1]) / 512.0
+    x = t[None, :] - T0.ravel()[:, None]
+    tt = TAU.ravel()[:, None]
+    templ = np.sin(2.0 * np.pi * 100.0 * x + 2.0 * np.pi) * np.exp(-(x**2) / tt**2)
+    logL = -0.5 * np.sum(((d - templ) / n_sig) ** 2, axis=-1)
+    logL = logL.reshape(grain, grain).T
+    return np.exp(logL - np.max(logL)), t0, tau
 
 
 def bbh_grid_posterior(measured: torch.Tensor, psd: torch.Tensor, bank_cfg,

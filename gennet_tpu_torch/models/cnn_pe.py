@@ -1,4 +1,5 @@
-"""CNN parameter point-estimator: whitened series → (mc, q) estimates."""
+"""CNN parameter point-estimators: whitened series → parameter estimates
+((mc, q) for the flagship, (t0, τ) for the burst)."""
 
 import torch
 import torch.nn.functional as F
@@ -51,3 +52,28 @@ class DualBranchPE(nn.Module):
             q = F.relu(conv(q))
         q = torch.sigmoid(self.q_dense(channels_last_flatten(q)))
         return torch.cat([mc, q], dim=-1)
+
+
+class BurstPE(nn.Module):
+    """The ``smoke`` workload's PE net (port of ``BurstPE``;
+    ref: burstMahoGANy.py:263-293):
+
+    Conv(64, 5, s2) SAME relu → Conv(128, 5, s2) VALID relu → flatten
+    → Dense(1024) relu → Dense(npar) linear.
+
+    The SAME stride-2 layer pads flax's asymmetric (1, 2) (:class:`Conv1d`).
+    Takes (B, n_pix, 1); at n_pix 512 the flatten is 126·128.
+    """
+
+    def __init__(self, n_pix: int = 512, npar: int = 2, filt: int = 5):
+        super().__init__()
+        self.conv0 = Conv1d(1, 64, filt, stride=2)
+        self.conv1 = Conv1d(64, 128, filt, stride=2, padding="VALID")
+        L = _out_len(_out_len(n_pix, filt, 2, "SAME"), filt, 2, "VALID")
+        self.dense0 = Dense(128 * L, 1024)
+        self.dense1 = Dense(1024, npar)
+
+    def forward(self, x, train: bool = False):
+        x = F.relu(self.conv0(x.transpose(1, 2)))
+        x = F.relu(self.conv1(x))
+        return self.dense1(F.relu(self.dense0(channels_last_flatten(x))))

@@ -1,4 +1,4 @@
-"""Discriminator network."""
+"""Discriminator networks."""
 
 from typing import Sequence
 
@@ -6,7 +6,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gennet_tpu_torch.models.layers import Dense, channels_last_flatten, conv1d_layer, dropout
+from gennet_tpu_torch.models.layers import (Conv1d, Dense, activation, channels_last_flatten,
+                                            conv1d_layer, dropout)
 
 
 class PairDiscriminator(nn.Module):
@@ -14,8 +15,10 @@ class PairDiscriminator(nn.Module):
     (ref: signal_discriminator_model, bbhMahoGANy.py:408-498), as a 1-D
     convolution over time with the pair as 2 input channels:
     Conv(256, 5, s2) → Conv(512, 5, s2), LeakyReLU 0.2, Dropout 0.4,
-    Dense(1) logit. Takes (B, n_pix, 2). ``conv_impl`` as in
-    :class:`~gennet_tpu_torch.models.generator.BBHGenerator`."""
+    Dense(1) logit. Takes (B, n_pix, in_ch): ``in_ch`` 2 for the pairs,
+    1 for the raw series of ``pair_discriminator=False``. ``conv_impl`` as
+    in :class:`~gennet_tpu_torch.models.generator.BBHGenerator` (under
+    ``"pallas"`` the first layer then runs the conv kernel at Cin 1)."""
 
     def __init__(self, features: Sequence[int] = (256, 512), filt: int = 5, drate: float = 0.4,
                  alpha: float = 0.2, n_pix: int = 1024, in_ch: int = 2, conv_impl: str = "xla"):
@@ -34,3 +37,30 @@ class PairDiscriminator(nn.Module):
             x = F.leaky_relu(conv(x), negative_slope=self.alpha)
             x = dropout(x, self.drate, train, gen)
         return self.dense(channels_last_flatten(x))
+
+
+class BurstDiscriminator(nn.Module):
+    """The ``smoke`` workload's discriminator on raw 1-D series (port of
+    ``BurstDiscriminator``; ref: burstMahoGANy.py:295-402):
+
+    Conv(64, 5) SAME tanh → maxpool 2 → Conv(128, 5) VALID tanh → maxpool 2
+    → channels-last flatten → Dense(1024) tanh → Dense(1) logit.
+
+    Takes (B, n_pix, 1); at n_pix 512 the flatten is 126·128. The convs are
+    :class:`Conv1d` (cuDNN on the card), as the JAX module's are ``nn.Conv``.
+    """
+
+    def __init__(self, n_pix: int = 512, act: str = "tanh"):
+        super().__init__()
+        self.act_name = act
+        self.conv0 = Conv1d(1, 64, 5)
+        self.conv1 = Conv1d(64, 128, 5, padding="VALID")
+        L = ((n_pix // 2) - 4) // 2
+        self.dense0 = Dense(128 * L, 1024)
+        self.dense1 = Dense(1024, 1)
+
+    def forward(self, x, train: bool = False, gen: torch.Generator | None = None):
+        act = activation(self.act_name)
+        x = F.max_pool1d(act(self.conv0(x.transpose(1, 2))), 2)
+        x = F.max_pool1d(act(self.conv1(x)), 2)
+        return self.dense1(act(self.dense0(channels_last_flatten(x))))

@@ -1,12 +1,13 @@
-"""Generator network: latent vector → noise-free waveform estimate."""
+"""Generator networks: latent vector → noise-free waveform estimate."""
 
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from gennet_tpu_torch.models.layers import (BatchNorm, Conv1d, Dense, activation, conv1d_layer,
-                                            dropout, upsample1d)
+from gennet_tpu_torch.models.layers import (BatchNorm, Conv1d, Dense, GaussianDropout, activation,
+                                            conv1d_layer, dropout, upsample1d)
 
 
 class BBHGenerator(nn.Module):
@@ -66,3 +67,45 @@ class BBHGenerator(nn.Module):
             x = norm(conv(x), bn, commit_stats)
             x = dropout(act(x), self.drate, train, gen)
         return self.out_conv(x).transpose(1, 2)
+
+
+class BurstGenerator(nn.Module):
+    """The ``smoke`` workload's generator (port of ``BurstGenerator``;
+    ref: burstMahoGANy.py:127-251):
+
+    latent(100) → Dense(256·n/2) relu → reshape(n/2, 256) → Up2
+    → [Conv(64) → Conv(64) → Conv(256) → Conv(512)], K 5 SAME, each relu
+      then GaussianDropout(drate)
+    → Conv(1, 5) tanh → (B, n, 1)
+
+    The reshape is flax's channels-last (n/2, 256), so a converted Dense
+    kernel applies unchanged. The convs are :class:`Conv1d` (cuDNN on the
+    card), as the JAX module's are ``nn.Conv``. The keyword arguments of
+    :meth:`forward` are :class:`BBHGenerator`'s; there is no BatchNorm, so
+    ``bn_train`` and ``commit_stats`` change nothing.
+    """
+
+    def __init__(self, n_out: int = 512, latent_dim: int = 100, drate: float = 0.3,
+                 features: Sequence[int] = (64, 64, 256, 512)):
+        super().__init__()
+        self.n_out, self.latent_dim, self.drate = n_out, latent_dim, drate
+        self.dense = Dense(latent_dim, 256 * (n_out // 2))
+        self.convs = nn.ModuleList()
+        self.drops = nn.ModuleList()
+        cin = 256
+        for feat in features:
+            self.convs.append(Conv1d(cin, feat, 5))
+            self.drops.append(GaussianDropout(drate))
+            cin = feat
+        self.out_conv = Conv1d(cin, 1, 5)
+
+    def forward(self, z, train: bool = False, bn_train: bool | None = None,
+                gen: torch.Generator | None = None, commit_stats: bool = False):
+        """z (B, latent) → (B, n_out, 1); ``train`` turns the Gaussian
+        dropout on (noise from ``gen``)."""
+        x = F.relu(self.dense(z))
+        x = x.view(x.shape[0], self.n_out // 2, 256).transpose(1, 2)  # (B, 256, n/2)
+        x = upsample1d(x, 2)
+        for conv, drop in zip(self.convs, self.drops):
+            x = drop(F.relu(conv(x)), train, gen)
+        return torch.tanh(self.out_conv(x)).transpose(1, 2)

@@ -151,6 +151,26 @@ def dropout(x: torch.Tensor, rate: float, active: bool, gen: torch.Generator | N
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
+class GaussianDropout(nn.Module):
+    """Keras ``GaussianDropout`` (port of ``models.layers.GaussianDropout``;
+    ref: burstMahoGANy.py:174,181,188,195): multiplies by N(1, rate/(1 − rate))
+    noise drawn from ``gen`` (on x's device) while training, and is the
+    identity otherwise or at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, train: bool = False, gen: torch.Generator | None = None):
+        if not train or self.rate == 0.0:
+            return x
+        if gen is None:
+            raise ValueError("GaussianDropout is active but no torch.Generator was given")
+        sigma = (self.rate / (1.0 - self.rate)) ** 0.5
+        return x * (1.0 + sigma * torch.randn(x.shape, generator=gen, device=x.device,
+                                              dtype=x.dtype))
+
+
 def upsample1d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Keras UpSampling1D on (B, C, L): repeat each sample along L
     (ref: bbhMahoGANy.py:249,258)."""

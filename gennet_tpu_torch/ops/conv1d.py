@@ -17,6 +17,7 @@ other: a CUDA tensor launches the kernel or raises.
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from gennet_tpu_torch.ops import _build
 from gennet_tpu_torch.ops.tf32 import cached_pack, split_tf32
@@ -224,7 +225,11 @@ class Conv1dTrain(torch.autograd.Function):
     through the sampling gives), then dx is the stride-1 kernel with taps
     flipped and in/out channels transposed (SAME stride-1 is
     self-transposing for odd K); dw (one contraction) and db are torch ops,
-    as the JAX package leaves them to XLA.
+    as the JAX package leaves them to XLA. The backward is not itself
+    differentiable (the kernel's output carries no graph), so a second
+    derivative, such as R1's gradient of a gradient, raises rather than
+    silently drop the conv's terms; the reference's Pallas body has no
+    second derivative either.
     """
 
     @staticmethod
@@ -235,6 +240,7 @@ class Conv1dTrain(torch.autograd.Function):
         return conv1d(x, w, bias, stride)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         B, _, L = x.shape

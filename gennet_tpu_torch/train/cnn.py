@@ -29,9 +29,24 @@ class CNNConfig:
     beta1: float = 0.5
     noise_frac: float = 1.0 / 8.0       # noisy fraction (ref: :113)
     noise_scale_max: float = 5.0        # N(0, U(0,5)) augmentation (ref: :1161)
+    max_normalize: bool = False         # the burst workload's batch-max
+                                        # normalisation (ref: burstMahoGANy.py:738)
+    max_per_sample: bool = False        # normalise by each sample's max instead
     ema_decay: float = 0.0              # EMA of params for evaluation (0 = off)
     lr_decay_steps: int = 0             # >0: cosine-decay the LR over this many
     lr_min_frac: float = 0.1            # steps to lr·lr_min_frac
+    npar: int = 2
+
+
+def normalize_max(x: torch.Tensor, cfg: CNNConfig) -> torch.Tensor:
+    """The burst workload's max normalisation (ref: burstMahoGANy.py:738):
+    by the batch's max by default, by each sample's when
+    ``cfg.max_per_sample``, the identity when ``cfg.max_normalize`` is off."""
+    if not cfg.max_normalize:
+        return x
+    if cfg.max_per_sample:
+        return x / (torch.amax(x, dim=tuple(range(1, x.ndim)), keepdim=True) + 1e-12)
+    return x / torch.max(x)
 
 
 def cosine_decay(decay_steps: int, alpha: float):
@@ -70,7 +85,8 @@ def init_cnn(gen: torch.Generator, model: nn.Module, cfg: CNNConfig, device) -> 
 
 def draw_cnn_batch(gen: torch.Generator, bank: torch.Tensor, targets: torch.Tensor,
                    cfg: CNNConfig):
-    """Gather a batch and augment it. Returns (x (B, n_pix, 1), y (B, npar))."""
+    """Gather a batch, augment it, then max-normalise it (when
+    ``cfg.max_normalize``). Returns (x (B, n_pix, 1), y (B, npar))."""
     B = cfg.batch_size
     idx = torch.randint(0, bank.shape[0], (B,), generator=gen, device=gen.device).to(bank.device)
     x = bank[idx]
@@ -82,7 +98,7 @@ def draw_cnn_batch(gen: torch.Generator, bank: torch.Tensor, targets: torch.Tens
         noise = torch.randn((B, x.shape[1]), generator=gen, device=gen.device, dtype=x.dtype)
         mask = (torch.arange(B, device=x.device) < n_noisy).to(x.dtype)[:, None]
         x = x + mask * (scale * noise).to(x.device)
-    return x[..., None], y
+    return normalize_max(x, cfg)[..., None], y
 
 
 def param_copy(model: nn.Module) -> dict:

@@ -1,20 +1,18 @@
-"""Pair-GAN training, the mahoGANy alternating scheme (port of
+"""GAN training, the mahoGANy alternating scheme (port of
 ``gennet_tpu.train.gan``).
 
-One iteration: a discriminator step on (real, fake) pairs, then the
-generator's adversarial step against the updated discriminator. As in the
-reference there are three Adam states — D, the adversarial G route and the
-residual G route (ref: burstMahoGANy.py:652-668) — and the D update,
-together with D's Adam state, is held back while D's batch accuracy is at
-or above ``d_acc_gate``.
+One iteration: a discriminator step, the optional residual route (the
+burst 3-loss scheme: G pulled towards a white residual ``measured − G(z)``),
+then the generator's adversarial step(s) against the updated
+discriminator. As in the reference there are three Adam states — D, the
+adversarial G route and the residual G route (ref: burstMahoGANy.py:652-668)
+— and the D update, together with D's Adam state, is held back while D's
+batch accuracy is at or above ``d_acc_gate``.
 
 The state owns its modules and optimisers and is updated in place.
 :func:`draw_gan_batch` consumes all of an iteration's randomness into a
 :class:`GANBatch`, so a batch made elsewhere (e.g. with numpy) drives
 :func:`gan_update` unchanged. Dropout masks come from ``GANBatch.gen``.
-
-Not ported yet (ROADMAP queue 1, item 6): the residual route and its
-spectral loss, R1, the diversity term, debug probes.
 """
 
 from dataclasses import dataclass
@@ -29,10 +27,9 @@ from gennet_tpu_torch.train.cnn import adam, ema_update, param_copy
 
 @dataclass(frozen=True)
 class GANConfig:
-    """GAN training config (reference defaults: bbhMahoGANy.py:83-113); the
-    field meanings are those of ``gennet_tpu.train.gan.GANConfig``, whose
-    residual-route, R1, diversity and debug fields are not ported yet. The
-    discriminator always sees (waveform, residual) pairs."""
+    """GAN training config (reference defaults: bbhMahoGANy.py:83-113 /
+    burstMahoGANy.py:31-48); the field meanings are those of
+    ``gennet_tpu.train.gan.GANConfig``."""
 
     n_pix: int = 1024
     latent_dim: int = 100
@@ -41,6 +38,11 @@ class GANConfig:
     beta1: float = 0.5
     n_sig: float = 1.0
     chi_loss: bool = False
+    pair_discriminator: bool = True    # D sees (waveform, residual) pairs, else raw series
+    residual_route: bool = False       # the burst 3-loss scheme's residual G route
+    res_loss_weight: float = 1.0
+    res_spectral_bands: int = 0        # > 0: the spectral residual loss over this many bands
+    res_eval_mode: bool = False        # the residual route on G's eval-mode output
     label_smoothing: bool = False
     latent_low: float = -1.0
     latent_high: float = 1.0
@@ -48,39 +50,51 @@ class GANConfig:
     d_lr_scale: float = 1.0
     d_acc_gate: float = 0.0
     d_instance_noise: float = 0.0
+    r1_gamma: float = 0.0              # R1 penalty γ/2·E‖∇ₓD(x_real)‖²
     g_steps_per_iter: int = 1
+    diversity_weight: float = 0.0      # mode-seeking term (Mao et al. 2019)
     g_ema_decay: float = 0.0
+    debug_probes: bool = False         # per-term health metrics in the step's output
     d_sees_train_mode: bool = True
 
 
 @dataclass
 class GANKnobs:
-    """Continuous training knobs (the ported subset of
-    ``gennet_tpu.train.gan.GANKnobs``)."""
+    """Continuous training knobs (``gennet_tpu.train.gan.GANKnobs``), read
+    at every update, so a run can change them between steps."""
 
-    d_acc_gate: float       # D updates only while d_acc < gate; ≥ 1 ⇒ always
-    instance_noise: float   # σ scale of the (unit) drawn instance noise
-    adv_weight: float       # weight of G's adversarial loss
+    d_acc_gate: float        # D updates only while d_acc < gate; ≥ 1 ⇒ always
+    diversity_weight: float
+    res_loss_weight: float
+    instance_noise: float    # σ scale of the (unit) drawn instance noise
+    r1_gamma: float
+    adv_weight: float        # weight of G's adversarial loss; 0 with d_acc_gate < 0
+                             # is the terminal anneal (D frozen, residual route only)
 
 
 def knobs_from_cfg(cfg: GANConfig) -> GANKnobs:
     return GANKnobs(d_acc_gate=cfg.d_acc_gate if cfg.d_acc_gate > 0 else 2.0,
-                    instance_noise=cfg.d_instance_noise, adv_weight=1.0)
+                    diversity_weight=cfg.diversity_weight,
+                    res_loss_weight=cfg.res_loss_weight,
+                    instance_noise=cfg.d_instance_noise, r1_gamma=cfg.r1_gamma,
+                    adv_weight=1.0)
 
 
 @dataclass
 class GANBatch:
-    """All random draws of one GAN iteration, materialised."""
+    """All random draws of one GAN iteration, materialised. The instance
+    noise has one channel per D input channel (d_ch = 2 for pairs, else 1)."""
 
     z1: torch.Tensor                  # (B, latent) D-step latents
     real: torch.Tensor                # (B, n_pix) bank gather
     fresh: torch.Tensor               # (B, n_pix) fresh N(0, n_sig) real-pair channel
-    in_real: torch.Tensor | None      # (B, n_pix, 2) unit instance noise, real D input
-    in_fake: torch.Tensor | None      # (B, n_pix, 2) unit instance noise, fake D input
-    in_g: torch.Tensor | None         # (S, B, n_pix, 2) unit instance noise, G route
+    in_real: torch.Tensor | None      # (B, n_pix, d_ch) unit instance noise, real D input
+    in_fake: torch.Tensor | None      # (B, n_pix, d_ch) unit instance noise, fake D input
+    in_g: torch.Tensor | None         # (S, B, n_pix, d_ch) unit instance noise, G route
     y_real: torch.Tensor              # (B,) real labels (smoothed or 1s)
     y_fake: torch.Tensor              # (B,) fake labels (smoothed or 0s)
     z3: torch.Tensor                  # (S, B, latent) adversarial G-step latents
+    z2: torch.Tensor | None = None    # (B, latent) residual-route latents
     gen: torch.Generator | None = None  # dropout masks (None: dropout must be off)
 
 
@@ -98,9 +112,11 @@ class GANState:
 def init_gan(gen: torch.Generator, generator: nn.Module, discriminator: nn.Module,
              cfg: GANConfig, device) -> GANState:
     """Initialise both networks from ``gen`` (a CPU generator, flax's
-    lecun_normal), move them to ``device`` and build the three Adam states."""
-    reset_module(generator, gen).to(device)
-    reset_module(discriminator, gen).to(device)
+    lecun_normal), move them to ``device`` and build the three Adam states.
+    Networks already on the device (a restart) are drawn on the CPU again,
+    so a seed gives the same weights on every device."""
+    reset_module(generator.cpu(), gen).to(device)
+    reset_module(discriminator.cpu(), gen).to(device)
     return GANState(
         generator=generator,
         discriminator=discriminator,
@@ -123,7 +139,7 @@ def draw_gan_batch(gen: torch.Generator, bank: torch.Tensor, cfg: GANConfig) -> 
     ridx = torch.randint(0, bank.shape[0], (cfg.batch_size,), generator=gen, device=gen.device)
     real = bank[ridx].repeat(cfg.n_noise_real, 1)
     fresh = torch.randn(real.shape, generator=gen, device=gen.device) * cfg.n_sig
-    in_shape = (B, real.shape[1], 2)
+    in_shape = (B, real.shape[1], 2 if cfg.pair_discriminator else 1)
     if cfg.d_instance_noise > 0.0:
         in_real = torch.randn(in_shape, generator=gen, device=gen.device)
         in_fake = torch.randn(in_shape, generator=gen, device=gen.device)
@@ -136,26 +152,42 @@ def draw_gan_batch(gen: torch.Generator, bank: torch.Tensor, cfg: GANConfig) -> 
     else:
         y_real = torch.ones((B,), device=gen.device)
         y_fake = torch.zeros((B,), device=gen.device)
+    z2 = (_uniform(gen, (B, cfg.latent_dim), cfg.latent_low, cfg.latent_high)
+          if cfg.residual_route else None)
     z3 = _uniform(gen, (S, B, cfg.latent_dim), cfg.latent_low, cfg.latent_high)
     return GANBatch(z1=z1, real=real, fresh=fresh, in_real=in_real, in_fake=in_fake,
-                    in_g=in_g, y_real=y_real, y_fake=y_fake, z3=z3, gen=gen)
+                    in_g=in_g, y_real=y_real, y_fake=y_fake, z3=z3, z2=z2, gen=gen)
 
 
-def _d_inputs(x_gen, batch: GANBatch, measured, knobs: GANKnobs):
+def _d_inputs(x_gen, batch: GANBatch, measured, cfg: GANConfig, knobs: GANKnobs):
     """Fake and real D inputs: (waveform, measured − waveform) pairs and
-    (bank template, fresh noise) pairs (ref: bbhMahoGANy.py:1267-1289)."""
-    fake = torch.stack([x_gen, measured[None, :] - x_gen], dim=-1)
-    realp = torch.stack([batch.real, batch.fresh], dim=-1)
+    (bank template, fresh noise) pairs (ref: bbhMahoGANy.py:1267-1289), or
+    the raw series as one channel (burst)."""
+    if cfg.pair_discriminator:
+        fake = torch.stack([x_gen, measured[None, :] - x_gen], dim=-1)
+        realp = torch.stack([batch.real, batch.fresh], dim=-1)
+    else:
+        fake, realp = x_gen[..., None], batch.real[..., None]
     if batch.in_real is not None:
         realp = realp + knobs.instance_noise * batch.in_real
         fake = fake + knobs.instance_noise * batch.in_fake
     return fake, realp
 
 
+def _global_norm(tensors) -> torch.Tensor:
+    """optax.global_norm: the 2-norm of all entries (a None grad counts as 0)."""
+    return torch.nn.utils.get_total_norm([t for t in tensors if t is not None])
+
+
+def _grad_norm(module: nn.Module) -> torch.Tensor:
+    return _global_norm(p.grad for p in module.parameters())
+
+
 def gan_update(state: GANState, batch: GANBatch, measured: torch.Tensor,
                knobs: GANKnobs | None = None, *, cfg: GANConfig):
     """The deterministic half of an iteration, in place: the D update (held
-    back, Adam state included, while d_acc ≥ the gate), then the G update(s).
+    back, Adam state included, while d_acc ≥ the gate), the residual route
+    (``cfg.residual_route``), then the adversarial G update(s).
     Returns (state, metrics dict of 0-d tensors)."""
     if knobs is None:
         knobs = knobs_from_cfg(cfg)
@@ -169,30 +201,73 @@ def gan_update(state: GANState, batch: GANBatch, measured: torch.Tensor,
     # the BN update: the D step must not advance the generator's state
     with torch.no_grad():
         x_fake = G(batch.z1, train=cfg.d_sees_train_mode, gen=batch.gen).reshape(B, -1)
-    fake_in, real_in = _d_inputs(x_fake, batch, measured, knobs)
+    fake_in, real_in = _d_inputs(x_fake, batch, measured, cfg, knobs)
 
-    # one dropout key drives both D passes in the reference: same masks
+    # one dropout key drives every D pass of the step in the reference
+    # (real, fake and R1's): same masks
     gen_state = batch.gen.get_state() if batch.gen is not None else None
+
+    def d_masks():
+        if gen_state is not None:
+            batch.gen.set_state(gen_state)
+        return batch.gen
+
     lr_ = D(real_in, train=True, gen=batch.gen)
-    if gen_state is not None:
-        batch.gen.set_state(gen_state)
-    lf_ = D(fake_in, train=True, gen=batch.gen)
+    lf_ = D(fake_in, train=True, gen=d_masks())
     d_loss = 0.5 * (L.bce_with_logits(lr_, batch.y_real) + L.bce_with_logits(lf_, batch.y_fake))
+    if cfg.r1_gamma > 0.0:
+        # R1: γ/2·E‖∇ₓ D(x_real)‖² (Mescheder et al. 2018), differentiated
+        # again with respect to D's weights
+        x_real = real_in.detach().requires_grad_(True)
+        gx, = torch.autograd.grad(D(x_real, train=True, gen=d_masks()).sum(), x_real,
+                                  create_graph=True)
+        r1 = torch.mean(torch.sum(gx**2, dim=tuple(range(1, gx.ndim))))
+        d_loss = d_loss + 0.5 * knobs.r1_gamma * r1
     d_acc = 0.5 * (L.binary_accuracy(lr_.detach(), 1.0) + L.binary_accuracy(lf_.detach(), 0.0))
     state.d_opt.zero_grad(set_to_none=True)
     d_loss.backward()
+    probes = {}
+    if cfg.debug_probes:
+        probes["d_grad_norm"] = _grad_norm(D)
+        probes["x_fake_absmax"] = torch.max(torch.abs(x_fake))
+        probes["d_logit_absmax"] = torch.maximum(torch.max(torch.abs(lr_.detach())),
+                                                 torch.max(torch.abs(lf_.detach())))
     # automatic D/G balance: skip the D update (and its Adam moments and
     # count) while D already wins; gate ≥ 1 ⇒ always update
     if bool(d_acc < knobs.d_acc_gate):
         state.d_opt.step()
 
+    # ---------------- residual route (burst scheme) ---------------------
+    res_loss = torch.zeros((), device=d_acc.device)
+    if cfg.residual_route:
+        # eval mode: dropout off, BN running averages, nothing committed;
+        # train mode commits this pass's BN statistics
+        res_train = not cfg.res_eval_mode
+        x = G(batch.z2, train=res_train, gen=batch.gen, commit_stats=res_train)
+        resid = measured[None, :, None] - x
+        if cfg.res_spectral_bands > 0:
+            rl = L.residual_spectral_loss(resid, cfg.n_sig, cfg.res_spectral_bands)
+        else:
+            rl = L.residual_moment_loss(resid, cfg.n_sig)
+        res_loss = knobs.res_loss_weight * rl
+        state.g_res_opt.zero_grad(set_to_none=True)
+        res_loss.backward()
+        if cfg.debug_probes:
+            probes["res_grad_norm"] = _grad_norm(G)
+        state.g_res_opt.step()
+        res_loss = res_loss.detach()
+
     # ---------------- generator adversarial step(s) ---------------------
     D.requires_grad_(False)
     try:
         for s in range(batch.z3.shape[0]):
-            x = G(batch.z3[s], train=True, gen=batch.gen, commit_stats=True)
+            z3 = batch.z3[s]
+            x = G(z3, train=True, gen=batch.gen, commit_stats=True)
             xf = x.reshape(B, -1)
-            d_in = torch.stack([xf, measured[None, :] - xf], dim=-1)
+            if cfg.pair_discriminator:
+                d_in = torch.stack([xf, measured[None, :] - xf], dim=-1)
+            else:
+                d_in = x if x.ndim == 3 else xf[..., None]
             if batch.in_g is not None:
                 d_in = d_in + knobs.instance_noise * batch.in_g[s]
             logits = D(d_in, train=True, gen=batch.gen)
@@ -201,9 +276,18 @@ def gan_update(state: GANState, batch: GANBatch, measured: torch.Tensor,
             else:
                 g_loss = L.bce_with_logits(logits, 1.0)
             g_loss = knobs.adv_weight * g_loss
+            # mode-seeking term: distinct latents must map to distinct
+            # waveforms (at weight 0 it adds exactly 0, so it is skipped)
+            h = B // 2
+            if h >= 1 and knobs.diversity_weight != 0.0:
+                num = torch.mean(torch.abs(xf[:h] - xf[h : 2 * h]))
+                den = torch.mean(torch.abs(z3[:h] - z3[h : 2 * h])) + 1e-8
+                g_loss = g_loss + knobs.diversity_weight / (num / den + 1e-5)
             g_acc = L.binary_accuracy(logits.detach(), 1.0)
             state.g_opt.zero_grad(set_to_none=True)
             g_loss.backward()
+            if cfg.debug_probes:
+                probes["g_grad_norm"] = _grad_norm(G)
             state.g_opt.step()
     finally:
         D.requires_grad_(True)
@@ -212,7 +296,23 @@ def gan_update(state: GANState, batch: GANBatch, measured: torch.Tensor,
         ema_update(state.g_ema, G, cfg.g_ema_decay)
     state.step += 1
     metrics = {"d_loss": d_loss.detach(), "d_acc": d_acc, "g_loss": g_loss.detach(),
-               "g_acc": g_acc, "res_loss": torch.zeros((), device=d_acc.device)}
+               "g_acc": g_acc, "res_loss": res_loss}
+    if cfg.debug_probes:
+        # route-separated gradient norms, state norms and activation
+        # extremes: whichever diverges first names the culprit term
+        with torch.no_grad():
+            var_mins = [torch.min(b) for name, b in G.named_buffers() if "var" in name]
+            metrics.update({
+                "d_grad_norm": probes["d_grad_norm"],
+                "g_grad_norm": probes["g_grad_norm"],
+                "res_grad_norm": probes.get("res_grad_norm", torch.zeros((), device=d_acc.device)),
+                "g_param_norm": _global_norm(p.detach() for p in G.parameters()),
+                "d_param_norm": _global_norm(p.detach() for p in D.parameters()),
+                "x_fake_absmax": probes["x_fake_absmax"],
+                "d_logit_absmax": probes["d_logit_absmax"],
+                "bn_var_min": (torch.min(torch.stack(var_mins)) if var_mins
+                               else torch.ones((), device=d_acc.device)),
+            })
     return state, metrics
 
 

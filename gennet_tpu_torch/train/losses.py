@@ -1,4 +1,5 @@
-"""Loss functions of the flagship path."""
+"""Loss functions of the GAN and CNN training (port of
+``gennet_tpu.train.losses``)."""
 
 import torch
 import torch.nn.functional as F
@@ -34,3 +35,31 @@ def mse_multi_output(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Per-output mean squared error summed over outputs
     (ref: bbhMahoGANy.py:1119,1165)."""
     return torch.sum(torch.mean((pred - target) ** 2, dim=0))
+
+
+def residual_moment_loss(residual: torch.Tensor, n_sig: float) -> torch.Tensor:
+    """The subtraction route's target: per sample, the residual's mean → 0
+    and mean square → n_sig², as an MSE on the two moments (ref: MyLayer
+    burst variant, burstMahoGANy.py:116-120,798-802)."""
+    dims = tuple(range(1, residual.ndim))
+    m1 = torch.mean(residual, dim=dims)
+    m2 = torch.mean(residual**2, dim=dims)
+    return torch.mean(0.5 * (m1**2 + (m2 - n_sig**2) ** 2))
+
+
+def residual_spectral_loss(residual: torch.Tensor, n_sig: float, n_bands: int) -> torch.Tensor:
+    """Frequency-resolved whiteness target of the subtraction route (the
+    JAX docstring gives the measured motivation): the periodogram
+    |rfft|²/n without DC and Nyquist (E = n_sig² per bin for white
+    N(0, n_sig²) noise) in ``n_bands`` equal bands, each band's mean power
+    MSE'd against n_sig², plus the mean square of the per-sample mean.
+    ``n_bands`` is clamped to [1, bins], so a tiny n_pix never takes a mean
+    over an empty band."""
+    r = residual.reshape(residual.shape[0], -1)
+    n = r.shape[-1]
+    p = torch.abs(torch.fft.rfft(r, dim=-1)[:, 1:-1]) ** 2 / n
+    nb = max(1, min(int(n_bands), p.shape[-1]))
+    bins = p.shape[-1] - (p.shape[-1] % nb)
+    bands = p[:, :bins].reshape(r.shape[0], nb, -1).mean(dim=-1)
+    m1 = torch.mean(r, dim=-1)
+    return torch.mean(m1**2) + torch.mean((bands - n_sig**2) ** 2)

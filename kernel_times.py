@@ -12,6 +12,13 @@ trees are held to the same plain code. CUDA events, the median of 20 after
 3 warm-up calls, timed kernel, plain, kernel, plain; the better median of
 each is kept.
 
+With ``--steps`` it times the train-bbh default recipe's step rates instead
+(GAN batch 8 at n_pix 1024 under ``conv_impl`` xla and pallas in the order
+xla, pallas, pallas, xla, and the PE at batch 8; 50 warm steps each, host
+clock around synchronised runs; random bank rows, as the rate does not
+depend on them), then the wall time of one ``ml_recenter`` call at the
+flagship geometry, as ``chip_smoke.py``'s throughput phase times it.
+
 Each call appends one JSON line to --out. To compare two trees, run this on
 both, one process after another on the same card, in the order parent,
 change, change, parent: times move by several percent between machines.
@@ -31,6 +38,7 @@ def main():
     ap.add_argument("--tree", default=HERE, help="checkout whose gennet_tpu_torch is timed")
     ap.add_argument("--tag", default="tree", help="label of the tree in the output")
     ap.add_argument("--out", default=os.path.join(HERE, "build", "kernel_times.jsonl"))
+    ap.add_argument("--steps", action="store_true", help="time train steps, not kernel calls")
     args = ap.parse_args()
 
     import torch
@@ -68,6 +76,11 @@ def main():
 
     def timed(kernel, plain):
         return cuda_ms(kernel), cuda_ms(plain), cuda_ms(kernel), cuda_ms(plain)
+
+    if args.steps:
+        step_rates(args.tag, card, g, dev, out)
+        out.close()
+        return
 
     # ---- phasor: the bank's real inputs at n_pix 1024 (N 4096, K 2049)
     cfg = tb.BankConfig()
@@ -115,6 +128,40 @@ def main():
         record("conv", call, 2.0 * B * -(-L // s) * 5 * ci * co, k1, k2, p1, p2)
         del x, w, b
     out.close()
+
+
+def step_rates(tag, card, g, dev, out):
+    """train-bbh's default-recipe GAN (xla, pallas, pallas, xla) and PE step
+    rates at batch 8, n_pix 1024, and one ``ml_recenter`` call's wall time,
+    on the imported tree."""
+    import torch
+    from chip_smoke import default_recipe_gans, ml_recenter_seconds, steps_per_s
+
+    from gennet_tpu_torch.models import DualBranchPE
+    from gennet_tpu_torch.train import cnn as tcnn
+    from gennet_tpu_torch.train import gan as tgan
+
+    n = 1024
+    bank = torch.randn((4096, n), generator=g, device=dev)
+    targets = torch.rand((4096, 2), generator=g, device=dev)
+    measured = torch.randn(n, generator=g, device=dev)
+    gan_cfg, gans = default_recipe_gans(n, dev)
+    pe_cfg = tcnn.CNNConfig(n_pix=n, ema_decay=0.999, lr_decay_steps=1000)
+    pe = tcnn.init_cnn(torch.Generator().manual_seed(1), DualBranchPE(n_pix=n), pe_cfg, dev)
+
+    rates = {"xla": [], "pallas": []}
+    for impl in ("xla", "pallas", "pallas", "xla"):
+        rates[impl].append(steps_per_s(
+            lambda: tgan.gan_step(gans[impl], bank, measured, g, cfg=gan_cfg)))
+    rates["pe"] = [steps_per_s(lambda: tcnn.cnn_step(pe, bank, targets, g, cfg=pe_cfg))]
+    for what, r in rates.items():
+        out.write(json.dumps({"tag": tag, "steps": what, "steps_per_s": r, "card": card}) + "\n")
+        print(f"[{tag}] {what} steps/s (batch 8, n_pix 1024): "
+              + "/".join(f"{x:.2f}" for x in r))
+
+    mlrc_s, _ = ml_recenter_seconds(g, dev)
+    out.write(json.dumps({"tag": tag, "ml_recenter_s": mlrc_s, "card": card}) + "\n")
+    print(f"[{tag}] ml_recenter (300 steps, 8 starts, n_pix 1024): {mlrc_s:.2f} s")
 
 
 if __name__ == "__main__":

@@ -255,12 +255,14 @@ def test_wrapper_rejects_bad_inputs(bad):
 # the flagship's conv shapes (n_pix 1024): (B, L, Cin, Cout, K, stride) of
 # the kernel's calls, forward (the three strided layers at their native
 # stride 2) and dx (stride 1), and edge cases: Cout 2, 7 and 64, ragged L,
-# Cin 2048 (beyond the earlier kernel's shared-memory window), K 3
+# Cin 2048 (beyond the earlier kernel's shared-memory window), K 3, and
+# the raw-series D's Conv_0 at Cin 1 (forward) and Cout 1 (its dx)
 _CARD_SHAPES = [(8, 1024, 256, 64, 5, 2), (8, 1024, 64, 128, 5, 1), (8, 1024, 128, 256, 5, 1),
                 (8, 1024, 256, 512, 5, 1), (8, 1024, 512, 1024, 5, 1), (8, 1024, 2, 256, 5, 2),
                 (8, 512, 256, 512, 5, 2), (8, 1024, 1024, 512, 5, 1), (8, 1024, 256, 2, 5, 1),
                 (8, 1024, 64, 256, 5, 1), (3, 37, 5, 7, 5, 1), (2, 255, 3, 2, 5, 2),
-                (1, 37, 2048, 64, 5, 1), (2, 100, 9, 200, 3, 1)]
+                (1, 37, 2048, 64, 5, 1), (2, 100, 9, 200, 3, 1),
+                (8, 1024, 1, 256, 5, 2), (8, 1024, 256, 1, 5, 1)]
 
 
 def _card_inputs(B, L, Cin, Cout, K, seed=0):

@@ -31,3 +31,19 @@ def test_port_imports_no_jax():
     n_modules, bad = int(lines[0]), lines[1]
     assert n_modules >= 20, out.stdout
     assert bad == "", f"gennet_tpu_torch pulled in: {bad}"
+
+
+def test_no_import_line_names_jax_or_the_jax_package():
+    # every module of the port (the burst workload's included) and the two
+    # card scripts: no import or from line names jax, flax, optax, orbax or
+    # gennet_tpu (gennet_tpu_torch is the port itself)
+    import glob
+    import re
+
+    files = sorted(glob.glob(os.path.join(REPO, "gennet_tpu_torch", "**", "*.py"), recursive=True))
+    files += [os.path.join(REPO, name) for name in ("chip_smoke.py", "kernel_times.py")]
+    assert os.path.join(REPO, "gennet_tpu_torch", "physics", "burst.py") in files
+    bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|gennet_tpu)\b(?!_torch)")
+    hits = [f"{os.path.relpath(f, REPO)}:{i}: {line.strip()}"
+            for f in files for i, line in enumerate(open(f), 1) if bad.match(line)]
+    assert hits == []

@@ -9,7 +9,8 @@
     tests/test_workloads.py::test_bbh_workload_tiny.
 (c) Options the port does not implement raise, and so do values the
     reference refuses. The options this port implements beyond the default
-    recipe are driven in tests/test_torch_workload_routes.py.
+    recipe are driven in tests/test_torch_workload_routes.py and (the
+    residual-route family) tests/test_torch_workload_burst.py.
 
 Tolerances as in the per-module tests: templates 1e-4·max (the event 3e-4,
 see tests/test_torch_bank.py), forward values 1e-4·max, losses rtol 1e-4,
@@ -24,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import two_torch_threads  # noqa: F401 (autouse fixture)
 
 from gennet_tpu.cli import workloads as jwl
 from gennet_tpu.data import template_bank as jtb
@@ -174,8 +176,6 @@ def test_port_run_bbh_tiny(tmp_path):
 @pytest.mark.parametrize("field,value", [
     ("lalinf_dir", "x"), ("bank_file", "x"), ("cnn_cache", "x"), ("resume", True),
     ("bf16", True), ("comb_pe_model", True), ("plots", True), ("g_norm", "group"),
-    ("res_loss_weight", 1.0), ("r1_gamma", 1.0), ("diversity_weight", 0.1),
-    ("anneal_frac", 0.1), ("freeze_on_white", 0.9), ("debug_probes", True),
 ])
 def test_unported_options_raise(tmp_path, field, value):
     cfg = twl.BBHConfig(plots=False, out_dir=str(tmp_path / "x"))

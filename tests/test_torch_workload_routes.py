@@ -22,6 +22,7 @@ import json
 
 import numpy as np
 import pytest
+from torch_threads import two_torch_threads  # noqa: F401 (autouse fixture)
 
 from gennet_tpu_torch.cli import workloads as twl
 from gennet_tpu_torch.eval import posterior_post as tpp

@@ -7,8 +7,8 @@ that the test workers share the runs.
 """
 
 import pytest
-
 from test_torch_workload_routes import run_option_case
+from torch_threads import two_torch_threads  # noqa: F401 (autouse fixture)
 
 CASES = {
     "select_route": {"select_route": "elbo"},
