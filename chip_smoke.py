@@ -40,7 +40,16 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    50,000 signals, batch 64, grain 95, 4000 draws), 200 PE and 200 GAN
    steps with ELBO selection and the anneal (cuDNN convs, as the JAX
    burst models run ``nn.Conv``: neither kernel launches);
-10. throughput (information): bank templates/s, PE steps/s, GAN steps/s
+10. slice 5: the staged pipeline through the CLI at full width:
+   ``make-bank`` of 50,000 templates at n_pix 1024 into a ``.gntb``
+   (reopened with its checksum verified; shape, finite values, the prior's
+   box, 3 phasor launches a synthesis), ``train-cnn`` on that file,
+   ``train-gan --conv-impl pallas`` for 10 steps, then for 20, which must
+   resume at step 10 (final step 20, the conv kernel launched for the 10
+   new steps only, the restored state bitwise the saved one), and
+   ``sample-posterior --conv-impl pallas --pe-mlrc 1`` (4000 finite draws,
+   both kernels launched), with each stage's wall time;
+11. throughput (information): bank templates/s, PE steps/s, GAN steps/s
    with ``conv_impl`` xla and pallas in turns, each kernel's launches per
    GAN step and per synthesis, and the burst PE and GAN steps/s.
 
@@ -247,6 +256,141 @@ def ml_recenter_seconds(g, dev) -> tuple:
     pp.ml_recenter(cloud, synth, event, g)
     torch.cuda.synchronize()
     return time.perf_counter() - t0, P.LAUNCHES
+
+
+def same_tree(a, b, path="state") -> list:
+    """Paths at which two nested state dicts differ (tensors bitwise)."""
+    import torch
+
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return [path]
+        return [p for k in a for p in same_tree(a[k], b[k], f"{path}.{k}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [path]
+        return [p for i, (x, y) in enumerate(zip(a, b)) for p in same_tree(x, y, f"{path}.{i}")]
+    if torch.is_tensor(a):
+        return [] if torch.equal(a.cpu(), b.cpu()) else [path]
+    return [] if a == b else [path]
+
+
+def slice5(cli_main, P, CV, build, card) -> tuple:
+    """The staged pipeline through the CLI at full width: ``make-bank`` of
+    50,000 templates at n_pix 1024 into a ``.gntb``, ``train-cnn`` on that
+    file, ``train-gan --conv-impl pallas`` for 10 steps and again for 20
+    (which resumes at step 10), then ``sample-posterior --conv-impl pallas
+    --pe-mlrc 1``. Returns ({kernel: launches}, {stage: wall s})."""
+    import numpy as np
+    import torch
+
+    from gennet_tpu_torch.data import bankstore
+    from gennet_tpu_torch.models import BBHGenerator, PairDiscriminator
+    from gennet_tpu_torch.train import gan as tgan
+    from gennet_tpu_torch.train.checkpoints import CheckpointManager, state_dict_of
+
+    n_bank, n_pix = 50_000, 1024
+    launches, stage_s = {"phasor": 0, "conv": 0}, {}
+
+    def stage(name, argv):
+        P.LAUNCHES = CV.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = cli_main(argv)
+        torch.cuda.synchronize()
+        stage_s[name] = time.perf_counter() - t0
+        counts = (P.LAUNCHES, CV.LAUNCHES)
+        launches["phasor"] += counts[0]
+        launches["conv"] += counts[1]
+        print(f"slice 5: {name} finished in {stage_s[name]:.1f} s; kernel launches phasor "
+              f"{counts[0]}, conv {counts[1]} [{card}]")
+        return out, counts
+
+    with tempfile.TemporaryDirectory(dir=build) as work:
+        bank = os.path.join(work, "bank.gntb")
+        run = os.path.join(work, "run")
+        _, (ph, cv) = stage("make-bank", ["make-bank", "--device", "cuda", "-N", str(n_bank),
+                                          "-f", str(n_pix), "-b", bank])
+        # batches of 4096 and the event twin, 3 launches a synthesis
+        n_synth = math.ceil((n_bank - 1) / 4096) + 1
+        if (ph, cv) != (3 * n_synth, 0):
+            fail(f"slice 5: make-bank launched phasor {ph}, conv {cv}; expected "
+                 f"{3 * n_synth} ({n_synth} syntheses) and 0")
+        t0 = time.perf_counter()
+        with bankstore.BankStore(bank, verify=True) as store:  # the checksum is verified on open
+            open_s = time.perf_counter() - t0
+            shape = (store.n, store.n_pix)
+            templates, params = np.array(store.templates), np.array(store.params)
+        finite = bool(np.isfinite(templates).all())
+        mc, q = params[:, 0], params[:, 1]
+        if shape != (n_bank, n_pix) or not finite:
+            fail(f"slice 5: the bank file holds {shape}, finite {finite}")
+        eps = 1e-4  # mc recomputed in float32 from (m1, m2) may cross the box by an ulp
+        if not (mc.min() >= 20 - eps and mc.max() <= 35 + eps and q.min() >= 0.5 - eps
+                and q.max() <= 1.0):
+            fail(f"slice 5: (mc, q) outside the hunt_constrain box: mc [{mc.min()}, {mc.max()}], "
+                 f"q [{q.min()}, {q.max()}]")
+        t0 = time.perf_counter()  # the write alone (information): the same arrays again
+        bankstore.write_bank(os.path.join(work, "again.gntb"), templates, params)
+        write_s = time.perf_counter() - t0
+        del templates, params
+        print(f"slice 5: make-bank {n_bank} templates at n_pix {n_pix}: "
+              f"{n_bank / stage_s['make-bank']:.0f} templates/s (the whole command: synthesis, "
+              f"copy to the host, checksummed write, and the first use's g++ build of the bank "
+              f"store, {bankstore.BUILD_SECONDS:.2f} s); the .gntb write alone {write_s:.2f} s, "
+              f"its verified open {open_s:.2f} s [{card}]")
+
+        common = ["--device", "cuda", "--n-pix", str(n_pix), "--bank-file", bank, "--out-dir", run,
+                  "--cadence", "10", "--pe-cadence", "10", "--eval-cadence", "100000",
+                  "--ckpt-every", "100000", "--plots", "false"]
+        out, _ = stage("train-cnn", ["train-cnn", *common, "--pe-iters", "20"])
+        if not all(math.isfinite(x) for x in out["pe_rms"]):
+            fail(f"slice 5: train-cnn pe_rms {out['pe_rms']}")
+        # conv kernel (train/gan.py::gan_update, default recipe): 25 a GAN
+        # step, and 5 for each of the final draw's 16 chunks of 256
+        per_call = 10 * 25 + 5 * math.ceil(4000 / 256)
+        for gan_iters in (10, 20):
+            out, (_, cv) = stage(f"train-gan --gan-iters {gan_iters}",
+                                 ["train-gan", *common, "--conv-impl", "pallas",
+                                  "--gan-iters", str(gan_iters)])
+            if out["final_step"] != gan_iters:
+                fail(f"slice 5: train-gan --gan-iters {gan_iters} ended at {out['final_step']}")
+            if cv != per_call:
+                fail(f"slice 5: train-gan --gan-iters {gan_iters} launched the conv kernel {cv} "
+                     f"times; 10 steps after the restored one imply {per_call}")
+            if gan_iters == 10:
+                # what the second call restores: bitwise the saved state
+                ckpt = os.path.join(run, "ckpt_gan")
+                saved = torch.load(os.path.join(ckpt, "ckpt_10.pt"), map_location="cpu",
+                                   weights_only=True)
+                state = tgan.init_gan(torch.Generator().manual_seed(0),
+                                      BBHGenerator(n_out=n_pix, conv_impl="pallas"),
+                                      PairDiscriminator(n_pix=n_pix, conv_impl="pallas"),
+                                      tgan.GANConfig(n_pix=n_pix), "cuda")
+                CheckpointManager(ckpt).restore(state)
+                diff = same_tree(state_dict_of(state), saved["state"])
+                if state.step != 10 or diff:
+                    fail(f"slice 5: the restored GAN state (step {state.step}) differs from the "
+                         f"saved one at {diff[:5]}")
+                del state, saved
+                print("slice 5: the GAN state restored from step 10 equals the saved one bit "
+                      "for bit (weights, BN statistics, three Adam states, step)")
+        post = os.path.join(work, "posterior.npz")
+        out, (ph, cv) = stage("sample-posterior",
+                              ["sample-posterior", "--device", "cuda", "--n-pix", str(n_pix),
+                               "--out-dir", run, "--conv-impl", "pallas", "--pe-mlrc", "1",
+                               "--n-samples", "4000", "--out", post])
+        data = np.load(post)
+        samples, wf = data["samples"], data[out["waveforms_key"]]
+        if samples.shape != (4000, 2) or not np.isfinite(samples).all() or wf.shape != (4000,
+                                                                                        n_pix):
+            fail(f"slice 5: sample-posterior wrote samples {samples.shape}, draws {wf.shape}")
+        # 16 draw chunks × 5 convs; ml_recenter: 300 Adam steps × 3 phasor
+        if cv < 5 * math.ceil(4000 / 256) or ph < 3 * 300:
+            fail(f"slice 5: sample-posterior launched phasor {ph}, conv {cv}")
+        print("slice 5 summary: " + json.dumps({
+            "stage_s": stage_s, "launches": launches, "posterior_mean": samples.mean(0).tolist(),
+            "posterior_std": samples.std(0).tolist()}))
+    return launches, stage_s
 
 
 def main():
@@ -632,7 +776,10 @@ def main():
         fail("slice 4: select_best=elbo selected no route")
     print("slice 4 summary: " + json.dumps(out4))
 
-    # ---- 10. throughput (information, warm, same process) -------------------
+    # ---- 10. slice 5: the staged pipeline through the CLI -------------------
+    launches_5, _ = slice5(cli_main, P, CV, build, card)
+
+    # ---- 11. throughput (information, warm, same process) -------------------
     from gennet_tpu_torch.models import BBHGenerator, DualBranchPE, PairDiscriminator
     from gennet_tpu_torch.train import cnn as tcnn
     from gennet_tpu_torch.train import gan as tgan
@@ -715,7 +862,7 @@ def main():
         return {"shape": " ".join(map(str, shape)) if isinstance(shape, tuple) else shape,
                 "ms": k, "plain_ms": p, "ratio": k / p}
 
-    # launches: slice 3, this slice's path, which runs both kernels (every
+    # launches: slice 5, this slice's path, which runs both kernels (every
     # path's count under launches_by_path); times and bounds: pass B and
     # G Conv_4's forward at batch 8, the largest call of each on the train path
     k_ms, p_ms = times["pass B"]
@@ -725,20 +872,22 @@ def main():
         "name": "phasor_irdft_f32", "route": "cuda",
         "source": "gennet_tpu_torch/csrc/phasor_irdft.cu",
         "replaces": "gennet_tpu/ops/phasor_dft.py:25",
-        "launches": phasor_launches_3, "max_abs_err": max(err_a, err_b), "ms": k_ms,
+        "launches": launches_5["phasor"], "max_abs_err": max(err_a, err_b), "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": lib_ms["pass B"],
         "ms_worst_ratio": worst(times),
         "launches_by_path": {"slice 1": launches, "slice 2": phasor_launches,
-                             "slice 3": phasor_launches_3, "slice 4": launches_4[0]},
+                             "slice 3": phasor_launches_3, "slice 4": launches_4[0],
+                             "slice 5": launches_5["phasor"]},
     }, {
         "name": "conv1d_same_f32", "route": "cuda",
         "source": "gennet_tpu_torch/csrc/conv1d_same.cu",
         "replaces": "gennet_tpu/ops/pallas_conv1d.py:50",
-        "launches": conv_launches_3, "max_abs_err": conv_err, "ms": ck_ms, "plain_ms": cp_ms,
+        "launches": launches_5["conv"], "max_abs_err": conv_err, "ms": ck_ms, "plain_ms": cp_ms,
         "bound_ms": cb_ms, "bound_by": cb_by, "library_ms": lib_ms["conv"],
         "ms_worst_ratio": worst(conv_times),
         "launches_by_path": {"slice 1": conv_launches_1, "slice 2": conv_launches,
-                             "slice 3": conv_launches_3, "slice 4": launches_4[1]},
+                             "slice 3": conv_launches_3, "slice 4": launches_4[1],
+                             "slice 5": launches_5["conv"]},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """The two workloads (port of ``gennet_tpu.cli.workloads``).
 
-- :func:`run_bbh`, ``train-bbh`` (ref: BBH_version/bbhMahoGANy.py:959-1384):
-  synthetic GW150914-like event → 50k-template whitened bank → exact
-  (mc, q) grid posterior and CNN sanity set → CNN point-estimator training
+- :func:`run_bbh`, ``train-bbh`` / ``train-cnn`` / ``train-gan`` (ref:
+  BBH_version/bbhMahoGANy.py:959-1384): synthetic GW150914-like event (or
+  lalinference products) → 50k-template whitened bank (or a bank file) →
+  exact (mc, q) grid posterior (or the products' posterior) and CNN sanity
+  set → CNN point-estimator training (or a CNN-cache hit)
   → GAN training (pair or raw-series D, optionally the residual route,
   R1, the diversity term, a terminal anneal and the whiteness/res early
   stop) → posterior draws (G → CNN, pooled over ``n_snapshots`` states),
@@ -10,6 +12,9 @@
   :mod:`gennet_tpu_torch.eval.posterior_post`, scored by β overlap, grid
   overlap, residual whiteness (and ELBO) at each eval cadence and at the
   end, with an ELBO-selected final cloud under ``select_best="elbo"``.
+  Both phases save checkpoints, and ``resume`` restores them.
+- :func:`sample_posterior`, ``sample-posterior`` (ref: gennet_tpu/cli/
+  main.py:217-304): posterior draws from the checkpoints of a run.
 - :func:`run_burst_smoke`, ``smoke`` (ref: tests/burstMahoGANy.py:569-901):
   the sine-Gaussian burst, its analytic bank and exact (t0, τ) grid, the
   burst CNN PE, the 3-loss GAN (raw-series D, residual route), posterior
@@ -33,17 +38,20 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from gennet_tpu_torch.data import lalinf_io
 from gennet_tpu_torch.data import template_bank as tb
+from gennet_tpu_torch.data.bankstore import BankStore
 from gennet_tpu_torch.eval import grid_posterior as gp
 from gennet_tpu_torch.eval import overlap as ov
 from gennet_tpu_torch.eval import posterior_post as pp
 from gennet_tpu_torch.eval.whiteness import posterior_whiteness
 from gennet_tpu_torch.models import (BBHGenerator, BurstDiscriminator, BurstGenerator, BurstPE,
-                                     DualBranchPE, PairDiscriminator)
+                                     CombinedPE, DualBranchPE, PairDiscriminator)
 from gennet_tpu_torch.physics import priors
 from gennet_tpu_torch.physics import psd as psd_mod
 from gennet_tpu_torch.physics.burst import make_burst_bank, sine_gaussian
-from gennet_tpu_torch.train.checkpoints import CheckpointManager, save_posterior_snapshot
+from gennet_tpu_torch.train.checkpoints import (CheckpointManager, save_posterior_snapshot,
+                                                state_dict_of)
 from gennet_tpu_torch.train.cnn import CNNConfig, cnn_step, init_cnn, normalize_max
 from gennet_tpu_torch.train.cnn import predict as cnn_predict
 from gennet_tpu_torch.train.gan import (GANConfig, GANState, gan_step, init_gan, knobs_from_cfg,
@@ -118,15 +126,16 @@ class BBHConfig:
 
 
 # field → ROADMAP item of the port that brings it
-_UNPORTED = {
-    "lalinf_dir": "queue 1 #12 (data interop)",
-    "bank_file": "queue 1 #12 (data interop)",
-    "cnn_cache": "queue 1 #7 (restore)",
-    "resume": "queue 1 #7 (restore)",
-    "bf16": "queue 1 #4 (reduced precision)",
-    "comb_pe_model": "queue 1 #4 (CombinedPE)",
-    "g_norm": "queue 1 #4 (group/none norm)",
-}
+_UNPORTED = {"bf16": "queue 1 #4 (reduced precision)"}
+
+# the PE phase's own generator: seed + this offset (seed + 1 and + 2 seed
+# the PE and GAN weights), so a CNN-cache hit leaves the later draws as
+# they are on a miss
+_PE_SEED_OFFSET = 3
+
+
+def _pe_generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed + _PE_SEED_OFFSET)
 
 
 def _check_common(cfg):
@@ -150,6 +159,8 @@ def check_ported(cfg: BBHConfig):
     ported; pass ``--plots false``)."""
     if cfg.conv_impl not in ("xla", "pallas"):
         raise ValueError(f"conv_impl={cfg.conv_impl!r}: must be 'xla' or 'pallas'")
+    if cfg.g_norm not in ("batch", "group", "none"):
+        raise ValueError(f"g_norm={cfg.g_norm!r}: must be 'batch', 'group' or 'none'")
     _check_common(cfg)
     if not cfg.pair_d and cfg.res_loss_weight <= 0:
         raise ValueError("pair_d=False requires res_loss_weight > 0: without the pair channel, "
@@ -167,6 +178,16 @@ def check_ported(cfg: BBHConfig):
         off.append("plots (ROADMAP queue 1 #13; pass --plots false)")
     if off:
         raise NotImplementedError("not ported yet: " + "; ".join(off))
+
+
+def bbh_cnn_cache_tag(cfg: BBHConfig) -> str:
+    """The CNN cache's entry for ``run_bbh``: every field that changes what
+    the trained CNN is, the bank included through its seed and size (the
+    reference's expression, workloads.py:1313-1316)."""
+    return (f"s{cfg.seed}_i{cfg.pe_iters}_n{cfg.n_pix}_b{cfg.pe_batch_size}"
+            f"_lr{cfg.lr:g}_nf{cfg.cnn_noise_frac:g}_tn{cfg.training_num}"
+            f"_ema{cfg.pe_ema_decay:g}_lrd{int(cfg.pe_lr_decay)}"
+            f"_cmb{int(cfg.comb_pe_model)}")
 
 
 def effective_n_sig(cfg: BBHConfig, norm: float) -> float:
@@ -190,18 +211,55 @@ def _bbh_bank_cfg(cfg: BBHConfig):
     return tb.BankConfig(fs=int(cfg.n_pix))
 
 
-def _prepare_bbh_data(cfg: BBHConfig, gen: torch.Generator, device):
-    """Event and bank, all on ``device``. Returns (bank, targets, signal,
-    measured, norm, psd)."""
+def _prepare_bbh_data(cfg: BBHConfig, gen: torch.Generator, device, skip_bank: bool = False):
+    """Event and bank, all on ``device`` (ref: workloads.py:1168-1225).
+    Returns (bank, targets, signal, measured, norm, psd, lalinf_samples).
+
+    - ``lalinf_dir``: PSD, event and norm come from the lalinference
+      products, and ``lalinf_samples`` is their (mc, q) posterior (None
+      without one). Otherwise the synthetic event is drawn from ``gen``.
+    - ``bank_file``: the bank is read from an ``.npz`` (``templates``,
+      ``mc``, ``q``) or a ``.gntb`` (``params[:, :2]``), every row kept.
+      Otherwise it is synthesized from ``gen`` and the event twin (its last
+      row) is dropped.
+    - ``skip_bank``: bank = targets = None (``sample-posterior``); the
+      event is drawn first, so ``measured`` is bit-identical to the
+      training run's.
+    """
     bank_cfg = _bbh_bank_cfg(cfg)
-    psd = psd_mod.analytic_advligo_psd(bank_cfg.fs, bank_cfg.T_obs * bank_cfg.safe, device=device)
-    signal, measured, norm = tb.make_event(gen, psd, bank_cfg)
-    norm = float(norm)
-    templates, params = tb.make_bank(gen, cfg.training_num, psd, bank_cfg, norm)
-    # drop the event-twin last template from training (ref: bbhMahoGANy.py:1033-1036)
-    bank = templates[:-1]
-    targets = torch.stack([params["mc"][:-1], params["q"][:-1]], dim=-1).to(torch.float32)
-    return bank, targets, signal, measured, norm, psd
+    lalinf_samples = None
+    if cfg.lalinf_dir:
+        prod = lalinf_io.load_event_products(cfg.lalinf_dir, fs=bank_cfg.fs,
+                                             T_safe=bank_cfg.T_obs * bank_cfg.safe)
+        psd = torch.as_tensor(prod["psd"], dtype=torch.float32, device=device)
+        measured = torch.as_tensor(prod["measured_whitened"], device=device)
+        signal = torch.as_tensor(prod["signal_whitened"], device=device)
+        norm = float(prod["norm_constant"])
+        lalinf_samples = prod.get("posterior_mc_q")
+    else:
+        psd = psd_mod.analytic_advligo_psd(bank_cfg.fs, bank_cfg.T_obs * bank_cfg.safe,
+                                           device=device)
+        signal, measured, norm = tb.make_event(gen, psd, bank_cfg)
+        norm = float(norm)
+
+    if skip_bank:
+        bank = targets = None
+    elif cfg.bank_file:
+        if cfg.bank_file.endswith(".gntb"):
+            with BankStore(cfg.bank_file) as store:  # copies out of the mapping
+                bank = torch.tensor(store.templates, device=device)
+                targets = torch.tensor(store.params[:, :2], device=device)  # (mc, q)
+        else:
+            data = np.load(cfg.bank_file)
+            bank = torch.as_tensor(data["templates"], dtype=torch.float32, device=device)
+            targets = torch.as_tensor(np.stack([data["mc"], data["q"]], axis=-1),
+                                      dtype=torch.float32, device=device)
+    else:
+        templates, params = tb.make_bank(gen, cfg.training_num, psd, bank_cfg, norm)
+        # drop the event-twin last template from training (ref: bbhMahoGANy.py:1033-1036)
+        bank = templates[:-1]
+        targets = torch.stack([params["mc"][:-1], params["q"][:-1]], dim=-1).to(torch.float32)
+    return bank, targets, signal, measured, norm, psd, lalinf_samples
 
 
 def _snapshot(state: GANState) -> GANState:
@@ -236,16 +294,20 @@ def run_bbh(cfg: BBHConfig, *, device):
         json.dump(dataclasses.asdict(cfg), f, indent=1)
     log = MetricLogger(cfg.out_dir, "bbh")
 
-    bank, targets, signal, measured, norm, psd = _prepare_bbh_data(cfg, gen, device)
+    bank, targets, signal, measured, norm, psd, lalinf_samples = _prepare_bbh_data(cfg, gen,
+                                                                                    device)
     bank_cfg = _bbh_bank_cfg(cfg)
     n_sig_eff = effective_n_sig(cfg, norm)
     print(f"effective noise std (residual/whiteness targets): {n_sig_eff:.4f}"
           f" ({'event norm' if cfg.n_sig_event else 'config n_sig'})")
 
-    # ---- reference posterior: the exact (mc, q) grid of the synthetic event
+    # ---- reference posterior: the lalinference products' when mounted
+    # (ref: :1274-1279), else the exact (mc, q) grid of the synthetic event
     grid = None
     ref_samples = None
-    if cfg.grid_grain > 0:
+    if lalinf_samples is not None:
+        ref_samples = np.asarray(lalinf_samples)
+    elif cfg.grid_grain > 0:
         sigma_eff = float(torch.std(measured - signal, correction=0))
         Lg, gmc, gq = gp.bbh_grid_posterior(measured, psd, bank_cfg, norm, sigma_eff,
                                             grain=cfg.grid_grain)
@@ -257,8 +319,9 @@ def run_bbh(cfg: BBHConfig, *, device):
                        noise_frac=cfg.cnn_noise_frac, ema_decay=cfg.pe_ema_decay,
                        lr_decay_steps=cfg.pe_iters if cfg.pe_lr_decay else 0)
     pe_use_ema = cfg.pe_ema_decay > 0
-    init_gen = torch.Generator().manual_seed(cfg.seed + 1)
-    pe_state = init_cnn(init_gen, DualBranchPE(n_pix=cfg.n_pix), pe_cfg, device)
+    pe_model = CombinedPE(n_pix=cfg.n_pix) if cfg.comb_pe_model else DualBranchPE(n_pix=cfg.n_pix)
+    pe_state = init_cnn(torch.Generator().manual_seed(cfg.seed + 1), pe_model, pe_cfg, device)
+    pe_gen = _pe_generator(cfg.seed, device)
 
     # CNN sanity set: ideal waveforms from the reference posterior's own
     # mass rows; the CNN's cloud on them bounds its best posterior
@@ -268,11 +331,27 @@ def run_bbh(cfg: BBHConfig, *, device):
         rs = torch.as_tensor(ref_samples, dtype=torch.float32, device=device)
         m1s, m2s = priors.mc_q_to_m1m2(rs[:, 0], rs[:, 1])
         sanity_waveforms = tb.make_templates_from_params(m1s, m2s, psd, bank_cfg, norm)
-    pe_ckpt = CheckpointManager(os.path.join(cfg.out_dir, "ckpt_pe"))
+    # the CNN cache (shared across sweep variants) or the run's own
+    # checkpoints, restored on resume (ref: :1310-1328)
+    if cfg.cnn_cache:
+        pe_ckpt = CheckpointManager(os.path.join(cfg.cnn_cache, bbh_cnn_cache_tag(cfg)),
+                                    max_to_keep=1)
+        restored, pe_extra = pe_ckpt.restore(pe_state)
+        if restored is not None:
+            print("CNN PE restored from cache")
+    else:
+        pe_ckpt = CheckpointManager(os.path.join(cfg.out_dir, "ckpt_pe"))
+        pe_extra = pe_ckpt.restore(pe_state)[1] if cfg.resume else None
+    if pe_extra:
+        pe_gen.set_state(pe_extra["gen"])
+    start = pe_state.step
+
+    def pe_save(step):
+        pe_ckpt.save(step, pe_state, extra={"gen": pe_gen.get_state()})
 
     # i counts completed updates
-    for i in range(1, cfg.pe_iters + 1):
-        pe_state, m = cnn_step(pe_state, bank, targets, gen, cfg=pe_cfg)
+    for i in range(start + 1, cfg.pe_iters + 1):
+        pe_state, m = cnn_step(pe_state, bank, targets, pe_gen, cfg=pe_cfg)
         if i % cfg.pe_cadence == 0:
             m = fetch_metrics(m)
             log.log(i, m)
@@ -284,9 +363,9 @@ def run_bbh(cfg: BBHConfig, *, device):
                     log.log(i, {"cnn_sanity_beta": b})
                     print(f"CNN sanity-check beta: {b:.4f}")
         if i % cfg.ckpt_every == 0:
-            pe_ckpt.save(i, pe_state)
-    if cfg.pe_iters > 0:
-        pe_ckpt.save(cfg.pe_iters, pe_state)
+            pe_save(i)
+    if cfg.pe_iters > start:
+        pe_save(cfg.pe_iters)
     # final CNN accuracy: MSE and mean |err| per parameter on a held-out
     # draw (ref: bbhMahoGANy.py:1188-1198)
     idx = np.random.default_rng(0).choice(bank.shape[0], min(4000, bank.shape[0]), replace=False)
@@ -323,8 +402,20 @@ def run_bbh(cfg: BBHConfig, *, device):
                           conv_impl=cfg.conv_impl)
     gan_state = init_gan(torch.Generator().manual_seed(cfg.seed + 2), G, D, gan_cfg, device)
     gan_ckpt = CheckpointManager(os.path.join(cfg.out_dir, "ckpt_gan"))
+    if cfg.resume:
+        # the newest step: after a finished run with evals, the diagnostic
+        # best-whiteness state at gan_iters + 1, as in the reference
+        gan_extra = gan_ckpt.restore(gan_state)[1]
+        if gan_extra:
+            gen.set_state(gan_extra["gen"])
+    start = gan_state.step
+
+    def gan_save(step, payload=None, gen_state=None):
+        gan_ckpt.save(step, gan_state if payload is None else payload,
+                      extra={"gen": gen.get_state() if gen_state is None else gen_state})
+
     if cfg.posterior_drate >= 0.0:
-        G_samp = BBHGenerator(n_out=cfg.n_pix, drate=cfg.posterior_drate,
+        G_samp = BBHGenerator(n_out=cfg.n_pix, drate=cfg.posterior_drate, norm=cfg.g_norm,
                               conv_impl=cfg.conv_impl).to(device)
         samp_dropout = True
     else:
@@ -438,11 +529,11 @@ def run_bbh(cfg: BBHConfig, *, device):
     base_knobs, anneal_knobs, anneal_start = _anneal_knobs(gan_cfg, cfg)
     gan_bank = gan_real_bank(cfg, bank, signal)
     beta_hist = []
-    best_white, best_state_dict = -1.0, None
+    best_white, best_state, best_gen = -1.0, None, None
     sel_score, sel_step = float("-inf"), None
     frozen_at = None
-    log.steps_per_sec(0)  # reset the steps/sec window for the GAN phase
-    for i in range(1, cfg.gan_iters + 1):  # i counts completed iterations
+    log.steps_per_sec(start)  # reset the steps/sec window for the GAN phase
+    for i in range(start + 1, cfg.gan_iters + 1):  # i counts completed iterations
         knobs = anneal_knobs if (cfg.anneal_frac > 0 and i - 1 >= anneal_start) else base_knobs
         gan_state, m = gan_step(gan_state, gan_bank, measured, gen, knobs, cfg=gan_cfg)
         if i % cfg.cadence == 0:
@@ -453,9 +544,10 @@ def run_bbh(cfg: BBHConfig, *, device):
             snapshots.append(_snapshot(gan_state))
             ev = eval_posterior(list(snapshots), i)
             if ev["whiteness"] > best_white:
+                # a copy of the whole state: it restores like any checkpoint
                 best_white = ev["whiteness"]
-                best_state_dict = {"step": i, "generator": {k: v.clone() for k, v in
-                                                            gan_state.generator.state_dict().items()}}
+                best_state = copy.deepcopy(state_dict_of(gan_state))
+                best_gen = gen.get_state()
             if ev.get("elbo", float("-inf")) > sel_score:
                 sel_score, sel_step = ev["elbo"], i
             # combined early stop (ref :1648-1661): white draws AND a converged
@@ -467,7 +559,7 @@ def run_bbh(cfg: BBHConfig, *, device):
                 frozen_at = i
                 print(f"residuals white ({ev['whiteness']:.3f} ≥ {cfg.freeze_on_white}, "
                       f"raw res_loss {res_raw:.2e}) — training frozen at {i}")
-                gan_ckpt.save(i, gan_state)
+                gan_save(i)
                 break
             if ev["beta"] is not None:
                 beta_hist.append(ev["beta"])
@@ -475,15 +567,15 @@ def run_bbh(cfg: BBHConfig, *, device):
                       ("" if ev["grid_overlap"] is None
                        else f"  grid overlap: {ev['grid_overlap']:.4f}"))
         if i % cfg.ckpt_every == 0:
-            gan_ckpt.save(i, gan_state)
-    gan_ckpt.save(max(cfg.gan_iters, 1), gan_state)
+            gan_save(i)
+    gan_save(max(cfg.gan_iters, 1))
 
     # ---- final-state artefacts (the reference uses the last iteration's
-    # state, ref: :1241); the best-whiteness generator is kept as a diagnostic
+    # state, ref: :1241); the best-whiteness state is kept as a diagnostic
     whiteness = beta_final = grid_overlap_final = beta_sanity_final = None
     beta_raw_final = grid_overlap_raw_final = None
     sel_route_name, sel_info = None, None
-    if cfg.gan_iters > 0:
+    if cfg.gan_iters > start:
         final_states = [gan_state]
         if cfg.n_snapshots > 1:
             # the pooled snapshots, plus the final state unless the last eval took it
@@ -527,8 +619,8 @@ def run_bbh(cfg: BBHConfig, *, device):
                    else f"  beta vs sanity cloud: {beta_sanity_final:.4f}") +
                   ("" if grid_overlap_final is None
                    else f"  grid overlap: {grid_overlap_final:.4f}"))
-        if best_state_dict is not None:
-            gan_ckpt.save(cfg.gan_iters + 1, best_state_dict)  # diagnostic state
+        if best_state is not None:
+            gan_save(cfg.gan_iters + 1, best_state, best_gen)  # diagnostic state
 
     log.close()
     return {
@@ -549,6 +641,103 @@ def run_bbh(cfg: BBHConfig, *, device):
         "pe_rms": pe_rms,
         "pe_std": pe_std,
     }
+
+
+# ---------------------------------------------------------------------------
+# sample-posterior
+
+
+def _routes_on(cfg: BBHConfig) -> bool:
+    return (cfg.select_route == "elbo" or cfg.pe_debias > 0 or cfg.pe_bootcal > 0
+            or cfg.pe_mlrc > 0 or cfg.reweight_temper > 0)
+
+
+def check_sample_posterior(cfg: BBHConfig):
+    """Refuse what the reference's ``sample-posterior`` cannot run. It
+    restores into ``DualBranchPE()``, a pair ``PairDiscriminator()`` and a
+    batch-norm ``BBHGenerator`` whatever the flags say, and synthesizes on
+    the n_pix 1024 geometry (``tb.BankConfig()``); each case below fails
+    there (orbax tree or shape mismatch, or a broadcast error in the
+    route)."""
+    bad = []
+    if cfg.comb_pe_model:
+        bad.append("comb_pe_model=True (the PE is restored into DualBranchPE)")
+    if not cfg.pair_d:
+        bad.append("pair_d=False (D is restored into the pair discriminator)")
+    if cfg.g_norm != "batch":
+        bad.append(f"g_norm={cfg.g_norm!r} (G is restored into the batch-norm generator)")
+    if cfg.n_pix != 1024 and _routes_on(cfg):
+        bad.append(f"n_pix={cfg.n_pix} with a posterior route (the routes synthesize at "
+                   "n_pix 1024)")
+    if bad:
+        raise ValueError("sample-posterior cannot run, as in the reference: " + "; ".join(bad))
+
+
+def sample_posterior(cfg: BBHConfig, *, n_samples: int, out: str, device):
+    """Posterior draws from a run's checkpoints (ref: gennet_tpu/cli/
+    main.py:217-304): G → CNN, then the truth-free routes the flags ask for
+    (noise std ``cfg.n_sig``, as in the reference), saved as ``out`` with
+    ``samples`` and ``waveforms``, or ``waveforms_unpaired`` when a
+    resampling route reordered the rows. Restores the newest checkpoint of
+    each phase (after a finished run with evals, G's best-whiteness state).
+    Returns the summary the CLI prints."""
+    check_sample_posterior(cfg)
+    device = torch.device(device)
+    gan_cfg = GANConfig(n_pix=cfg.n_pix, batch_size=cfg.batch_size)
+    G = BBHGenerator(n_out=cfg.n_pix, conv_impl=cfg.conv_impl)
+    D = PairDiscriminator(n_pix=cfg.n_pix, conv_impl=cfg.conv_impl)
+    gan_state = init_gan(torch.Generator().manual_seed(0), G, D, gan_cfg, device)
+    pe_state = init_cnn(torch.Generator().manual_seed(1), DualBranchPE(n_pix=cfg.n_pix),
+                        CNNConfig(n_pix=cfg.n_pix), device)
+    for phase, state in (("ckpt_gan", gan_state), ("ckpt_pe", pe_state)):
+        directory = os.path.join(cfg.out_dir, phase)
+        if CheckpointManager(directory).restore(state)[0] is None:
+            raise FileNotFoundError(f"no checkpoint in {directory}")
+    use_ema = cfg.pe_ema_decay > 0  # the training run's eval path
+    wf = sample_generator(G, gan_state, torch.Generator(device=device).manual_seed(cfg.seed),
+                          n_samples, gan_cfg)
+    samples = cnn_predict(pe_state, wf, use_ema=use_ema).cpu().numpy()
+    extra, resampled = {}, False
+    if _routes_on(cfg):
+        # the event as the training run drew it (skip_bank: same draws)
+        measured, norm, psd = _prepare_bbh_data(
+            cfg, torch.Generator(device=device).manual_seed(cfg.seed), device,
+            skip_bank=True)[3:6]
+        bank_cfg = tb.BankConfig()
+
+        def synth(sm):
+            sm = torch.as_tensor(sm, dtype=torch.float32, device=device)
+            m1s, m2s = priors.mc_q_to_m1m2(torch.clamp(sm[:, 0], 5.0, 60.0),
+                                           torch.clamp(sm[:, 1], 0.2, 1.0))
+            return tb.make_templates_from_params(m1s, m2s, psd, bank_cfg, norm)
+
+        def cnn(w):
+            return cnn_predict(pe_state, w, use_ema=use_ema)
+
+        rgen = torch.Generator(device=device).manual_seed(cfg.seed + 7)
+        if cfg.select_route == "elbo":
+            route, samples, _ = pp.select_route(
+                samples, synth, cnn, measured, cfg.n_sig, rgen,
+                temper=cfg.reweight_temper if cfg.reweight_temper > 0 else 1.0)
+            extra["route"] = route
+            resampled = route.endswith("reweight")
+        else:
+            if cfg.pe_debias > 0:
+                samples = pp.self_calibrate(samples, synth, cnn, rgen, cfg.n_sig,
+                                            rounds=cfg.pe_debias)
+            if cfg.pe_bootcal > 0:
+                samples = pp.bootstrap_calibrate(samples, synth, cnn, rgen, cfg.n_sig)
+            if cfg.pe_mlrc > 0:
+                samples = pp.ml_recenter(samples, synth, measured, rgen)
+            if cfg.reweight_temper > 0:
+                samples = pp.likelihood_resample(samples, synth, measured, cfg.n_sig, rgen,
+                                                 temper=cfg.reweight_temper)
+                resampled = True
+    # resampling reorders and repeats rows, so samples[i] no longer pairs
+    # with wf[i]: the draws then go under another key
+    wf_key = "waveforms_unpaired" if resampled else "waveforms"
+    np.savez_compressed(out, samples=samples, **{wf_key: wf.cpu().numpy()})
+    return {"samples": int(samples.shape[0]), "file": out, "waveforms_key": wf_key, **extra}
 
 
 # ---------------------------------------------------------------------------
@@ -607,16 +796,22 @@ class BurstSmokeConfig:
 
 
 def check_burst_ported(cfg: BurstSmokeConfig):
-    """The reference's three ValueErrors, then NotImplementedError for the
-    options this port does not implement yet (the CNN cache; ``plots``)."""
+    """The reference's three ValueErrors, then NotImplementedError for
+    ``plots``, which are not ported."""
     _check_common(cfg)
-    off = []
-    if cfg.cnn_cache is not None:
-        off.append("cnn_cache (ROADMAP queue 1 #7 (restore))")
     if cfg.plots:
-        off.append("plots (ROADMAP queue 1 #13; pass --plots false)")
-    if off:
-        raise NotImplementedError("not ported yet: " + "; ".join(off))
+        raise NotImplementedError("not ported yet: plots (ROADMAP queue 1 #13; pass --plots false)")
+
+
+def burst_cnn_cache_tag(cfg: BurstSmokeConfig) -> str:
+    """The CNN cache's entry for ``run_burst_smoke``: lr and n_sig included
+    (noise_scale_max = 2·n_sig), so a sweep never restores a mismatched
+    CNN (the reference's expression, workloads.py:296-300)."""
+    return (f"s{cfg.seed}_i{cfg.pe_iters}_n{cfg.n_pix}_b{cfg.batch_size}"
+            f"_sig{cfg.n_signals}_psm{int(cfg.per_sample_max)}"
+            f"_lr{cfg.lr:g}_ns{cfg.n_sig:g}"
+            + (f"_pnf{cfg.pe_noise_frac}" if cfg.pe_noise_frac else "")
+            + ("_nonorm" if cfg.pe_no_norm else ""))
 
 
 # the exact grid's parameter box (burst_grid_posterior's defaults): the
@@ -659,12 +854,22 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device):
                        max_normalize=not cfg.pe_no_norm, max_per_sample=cfg.per_sample_max)
     pe_state = init_cnn(torch.Generator().manual_seed(cfg.seed + 1), BurstPE(n_pix=cfg.n_pix),
                         pe_cfg, device)
-    for i in range(1, cfg.pe_iters + 1):  # i counts completed updates
-        pe_state, m = cnn_step(pe_state, bank, pars, gen, cfg=pe_cfg)
-        if i % cfg.cadence == 0:
-            m = fetch_metrics(m)
-            log.log(i, m)
-            print(log.status_line(i, m, log.steps_per_sec(i)))
+    # the PE phase draws from its own generator, so a cache hit leaves the
+    # GAN phase's draws as they are on a miss (ref: :287-307)
+    cache = (CheckpointManager(os.path.join(cfg.cnn_cache, burst_cnn_cache_tag(cfg)),
+                               max_to_keep=1) if cfg.cnn_cache else None)
+    if cache is not None and cache.restore(pe_state)[0] is not None:
+        print("CNN PE restored from cache")
+    else:
+        pe_gen = _pe_generator(cfg.seed, device)
+        for i in range(1, cfg.pe_iters + 1):  # i counts completed updates
+            pe_state, m = cnn_step(pe_state, bank, pars, pe_gen, cfg=pe_cfg)
+            if i % cfg.cadence == 0:
+                m = fetch_metrics(m)
+                log.log(i, m)
+                print(log.status_line(i, m, log.steps_per_sec(i)))
+        if cache is not None:
+            cache.save(cfg.pe_iters, pe_state)
     # PE accuracy on the bank
     est = cnn_predict(pe_state, bank[:4000]).cpu().numpy()
     tgt = pars[:4000].cpu().numpy()

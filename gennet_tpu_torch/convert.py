@@ -9,7 +9,8 @@ layout rules:
   in flax's channels-last order, so the kernel needs no permutation.
 - Conv kernel (K, Cin, Cout) → ``Conv1d.weight`` (Cout, Cin, K).
 - BatchNorm scale/bias → weight/bias; batch_stats mean/var →
-  running_mean/running_var.
+  running_mean/running_var. GroupNorm scale/bias → weight/bias.
+- PReLU negative_slope (a scalar) → negative_slope.
 """
 
 import numpy as np
@@ -34,13 +35,21 @@ def _bn(p, s, prefix):
             f"{prefix}.running_mean": _t(s["mean"]), f"{prefix}.running_var": _t(s["var"])}
 
 
-def flax_to_torch_generator(params, batch_stats) -> dict:
-    """BBHGenerator: Dense_0, BatchNorm_0..n, Conv_0..n (the last is the
-    1-channel output conv)."""
+def _gn(p, prefix):
+    return {f"{prefix}.weight": _t(p["scale"]), f"{prefix}.bias": _t(p["bias"])}
+
+
+def flax_to_torch_generator(params, batch_stats=None) -> dict:
+    """BBHGenerator: Dense_0, BatchNorm_0..n (``norm="batch"``) or
+    GroupNorm_0..n (``"group"``) or no norm (``"none"``), Conv_0..n (the
+    last is the 1-channel output conv)."""
     n_conv = sum(1 for k in params if k.startswith("Conv_"))
     sd = _dense(params["Dense_0"], "dense")
     for i in range(n_conv):
-        sd.update(_bn(params[f"BatchNorm_{i}"], batch_stats[f"BatchNorm_{i}"], f"norms.{i}"))
+        if f"BatchNorm_{i}" in params:
+            sd.update(_bn(params[f"BatchNorm_{i}"], batch_stats[f"BatchNorm_{i}"], f"norms.{i}"))
+        elif f"GroupNorm_{i}" in params:
+            sd.update(_gn(params[f"GroupNorm_{i}"], f"norms.{i}"))
     for i in range(n_conv - 1):
         sd.update(_conv(params[f"Conv_{i}"], f"convs.{i}"))
     sd.update(_conv(params[f"Conv_{n_conv - 1}"], "out_conv"))
@@ -65,6 +74,18 @@ def flax_to_torch_pe(params, batch_stats=None) -> dict:
         sd.update(_conv(params[f"Conv_{i}"], f"mc_convs.{i}"))
     for i in range(5):
         sd.update(_conv(params[f"Conv_{4 + i}"], f"q_convs.{i}"))
+    return sd
+
+
+def flax_to_torch_combined_pe(params, batch_stats) -> dict:
+    """CombinedPE: Conv_0..3, PReLU_0..3, BatchNorm_0..3 (one of each per
+    block), Dense_0, PReLU_4, Dense_1."""
+    sd = {**_dense(params["Dense_0"], "dense0"), **_dense(params["Dense_1"], "dense1"),
+          "prelu_out.negative_slope": _t(params["PReLU_4"]["negative_slope"])}
+    for i in range(4):
+        sd.update(_conv(params[f"Conv_{i}"], f"convs.{i}"))
+        sd[f"prelus.{i}.negative_slope"] = _t(params[f"PReLU_{i}"]["negative_slope"])
+        sd.update(_bn(params[f"BatchNorm_{i}"], batch_stats[f"BatchNorm_{i}"], f"norms.{i}"))
     return sd
 
 

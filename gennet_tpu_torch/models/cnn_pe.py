@@ -1,11 +1,14 @@
 """CNN parameter point-estimators: whitened series → parameter estimates
 ((mc, q) for the flagship, (t0, τ) for the burst)."""
 
+from typing import Sequence
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gennet_tpu_torch.models.layers import Conv1d, Dense, channels_last_flatten
+from gennet_tpu_torch.models.layers import (BatchNorm, Conv1d, Dense, PReLU,
+                                            channels_last_flatten, dropout)
 
 
 def _out_len(L: int, k: int, s: int, padding: str) -> int:
@@ -41,7 +44,7 @@ class DualBranchPE(nn.Module):
             cin, L = feat, _out_len(L, filt, s, pad)
         return convs, cin * L
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, gen: torch.Generator | None = None):
         x = x.transpose(1, 2)
         mc = x
         for conv in self.mc_convs:
@@ -52,6 +55,44 @@ class DualBranchPE(nn.Module):
             q = F.relu(conv(q))
         q = torch.sigmoid(self.q_dense(channels_last_flatten(q)))
         return torch.cat([mc, q], dim=-1)
+
+
+class CombinedPE(nn.Module):
+    """The single-net PE variant (``comb_pe_model``; ref: bbhMahoGANy.py:
+    308-354):
+
+    4 × [Conv(64/128/256/512, 5, s2) VALID → PReLU → BatchNorm(0.9)], with
+    Dropout(0.5) after the first block → flatten → Dense(1024) → PReLU
+    → Dense(npar) → relu
+
+    In training mode BatchNorm uses and commits the batch statistics (as
+    the JAX ``cnn_update`` does with ``mutable=["batch_stats"]``) and the
+    dropout mask comes from ``gen``; in eval mode BatchNorm uses the
+    running averages. Takes (B, n_pix, 1), returns (B, npar).
+    """
+
+    def __init__(self, n_pix: int = 1024, npar: int = 2, filt: int = 5, bn_momentum: float = 0.9,
+                 features: Sequence[int] = (64, 128, 256, 512)):
+        super().__init__()
+        self.convs, self.prelus, self.norms = nn.ModuleList(), nn.ModuleList(), nn.ModuleList()
+        cin, L = 1, n_pix
+        for feat in features:
+            self.convs.append(Conv1d(cin, feat, filt, stride=2, padding="VALID"))
+            self.prelus.append(PReLU())
+            self.norms.append(BatchNorm(feat, bn_momentum))
+            cin, L = feat, _out_len(L, filt, 2, "VALID")
+        self.dense0 = Dense(cin * L, 1024)
+        self.prelu_out = PReLU()
+        self.dense1 = Dense(1024, npar)
+
+    def forward(self, x, train: bool = False, gen: torch.Generator | None = None):
+        x = x.transpose(1, 2)
+        for i, (conv, prelu, norm) in enumerate(zip(self.convs, self.prelus, self.norms)):
+            x = norm(prelu(conv(x)), train, commit=train)
+            if i == 0:
+                x = dropout(x, 0.5, train, gen)
+        x = self.prelu_out(self.dense0(channels_last_flatten(x)))
+        return F.relu(self.dense1(x))
 
 
 class BurstPE(nn.Module):
@@ -73,7 +114,7 @@ class BurstPE(nn.Module):
         self.dense0 = Dense(128 * L, 1024)
         self.dense1 = Dense(1024, npar)
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, gen: torch.Generator | None = None):
         x = F.relu(self.conv0(x.transpose(1, 2)))
         x = F.relu(self.conv1(x))
         return self.dense1(F.relu(self.dense0(channels_last_flatten(x))))

@@ -6,8 +6,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gennet_tpu_torch.models.layers import (BatchNorm, Conv1d, Dense, GaussianDropout, activation,
-                                            conv1d_layer, dropout, upsample1d)
+from gennet_tpu_torch.models.layers import (Conv1d, Dense, GaussianDropout, activation,
+                                            conv1d_layer, dropout, norm_layer, upsample1d)
 
 
 class BBHGenerator(nn.Module):
@@ -21,7 +21,9 @@ class BBHGenerator(nn.Module):
     → Conv(1, 5) linear → (B, n, 1)
 
     BN_0 acts on the flat 256·n/2 Dense features before the reshape, as in
-    the JAX module. Only ``norm="batch"`` is ported. ``conv_impl`` picks
+    the JAX module. ``norm`` is ``"batch"`` (the reference's), ``"group"``
+    (flax GroupNorm, groups of 16 channels) or ``"none"``; the parameters
+    differ between them, as in the JAX module. ``conv_impl`` picks
     Conv_0..n−1's implementation (``"xla"``: cuDNN, ``"pallas"``: the port's
     conv1d kernel); the 1-channel output conv is always :class:`Conv1d`, as
     in the JAX module. Parameters are the same under both.
@@ -32,18 +34,15 @@ class BBHGenerator(nn.Module):
                  features: Sequence[int] = (64, 128, 256, 512, 1024), norm: str = "batch",
                  conv_impl: str = "xla"):
         super().__init__()
-        if norm != "batch":
-            raise NotImplementedError(f"BBHGenerator norm={norm!r}: only 'batch' is ported "
-                                      "(ROADMAP queue 1, item 4)")
         self.n_out, self.latent_dim, self.act_name, self.drate = n_out, latent_dim, act, drate
         half = n_out // 2
         self.dense = Dense(latent_dim, 256 * half)
-        self.norms = nn.ModuleList([BatchNorm(256 * half, bn_momentum)])
+        self.norms = nn.ModuleList([norm_layer(norm, 256 * half, bn_momentum)])
         self.convs = nn.ModuleList()
         cin = 256
         for i, feat in enumerate(features):
             self.convs.append(conv1d_layer(conv_impl, cin, feat, filt, stride=2 if i == 0 else 1))
-            self.norms.append(BatchNorm(feat, bn_momentum))
+            self.norms.append(norm_layer(norm, feat, bn_momentum))
             cin = feat
         self.out_conv = Conv1d(cin, 1, filt)
 

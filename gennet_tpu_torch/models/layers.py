@@ -139,6 +139,63 @@ class BatchNorm(nn.Module):
         return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
+class GroupNorm(nn.GroupNorm):
+    """flax ``nn.GroupNorm(group_size=16)``: groups of 16 consecutive
+    channels (``channel_dim`` 1), epsilon 1e-6, scale and bias per channel
+    (flax "scale" → ``weight``). Batch-independent, so it has no running
+    statistics; :class:`BatchNorm`'s mode arguments are accepted and
+    change nothing."""
+
+    def __init__(self, features: int, group_size: int = 16, eps: float = 1e-6):
+        if features % group_size:
+            raise ValueError(f"{features} channels do not split into groups of {group_size}")
+        super().__init__(features // group_size, features, eps=eps)
+
+    def reset_parameters(self, gen: torch.Generator | None = None):
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x, batch_stats: bool = False, commit: bool = False):
+        return super().forward(x)
+
+
+class NoNorm(nn.Module):
+    """The identity in a norm's place (``norm="none"``), with
+    :class:`BatchNorm`'s call signature."""
+
+    def forward(self, x, batch_stats: bool = False, commit: bool = False):
+        return x
+
+
+def norm_layer(kind: str, features: int, momentum: float) -> nn.Module:
+    """The generator's normalisation: ``"batch"`` (:class:`BatchNorm`),
+    ``"group"`` (:class:`GroupNorm`) or ``"none"``."""
+    if kind == "batch":
+        return BatchNorm(features, momentum)
+    if kind == "group":
+        return GroupNorm(features)
+    if kind == "none":
+        return NoNorm()
+    raise ValueError(f"norm must be 'batch', 'group' or 'none', got {kind!r}")
+
+
+class PReLU(nn.Module):
+    """flax ``nn.PReLU``: one scalar slope for all inputs, initialised to
+    0.01 (torch's default is 0.25)."""
+
+    def __init__(self, init: float = 0.01):
+        super().__init__()
+        self.init = init
+        self.negative_slope = nn.Parameter(torch.tensor(init))
+
+    def reset_parameters(self, gen: torch.Generator | None = None):
+        with torch.no_grad():
+            self.negative_slope.fill_(self.init)
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.negative_slope * x)
+
+
 def dropout(x: torch.Tensor, rate: float, active: bool, gen: torch.Generator | None):
     """flax ``nn.Dropout``: keep with probability 1 − rate and rescale. The
     mask comes from ``gen`` (which must live on x's device), so a seed

@@ -115,14 +115,16 @@ def ema_update(ema: dict, model: nn.Module, decay: float):
                              1.0 - decay)
 
 
-def cnn_update(state: CNNState, x: torch.Tensor, y: torch.Tensor, *, cfg: CNNConfig):
-    """One MSE update on a materialised batch, in place. Returns
+def cnn_update(state: CNNState, x: torch.Tensor, y: torch.Tensor, *, cfg: CNNConfig,
+               gen: torch.Generator | None = None):
+    """One MSE update on a materialised batch, in place; a model with
+    dropout (``CombinedPE``) draws its mask from ``gen``. Returns
     (state, {"pe_loss": 0-d tensor})."""
     model = state.model
     if cfg.ema_decay > 0.0 and state.ema is None:
         state.ema = param_copy(model)
     state.opt.zero_grad(set_to_none=True)
-    loss = L.mse_multi_output(model(x, train=True), y)
+    loss = L.mse_multi_output(model(x, train=True, gen=gen), y)
     loss.backward()
     state.opt.step()
     if state.sched is not None:
@@ -137,7 +139,7 @@ def cnn_step(state: CNNState, bank: torch.Tensor, targets: torch.Tensor, gen: to
              *, cfg: CNNConfig):
     """One CNN PE iteration: draw a batch, then update."""
     x, y = draw_cnn_batch(gen, bank, targets, cfg)
-    return cnn_update(state, x, y, cfg=cfg)
+    return cnn_update(state, x, y, cfg=cfg, gen=gen)
 
 
 def predict(state: CNNState, x: torch.Tensor, chunk: int = 512, use_ema: bool = False):

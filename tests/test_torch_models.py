@@ -16,10 +16,11 @@ import torch
 from flax import linen as fnn
 
 from gennet_tpu.models import BBHGenerator as JG
+from gennet_tpu.models import CombinedPE as JCPE
 from gennet_tpu.models import DualBranchPE as JPE
 from gennet_tpu.models import PairDiscriminator as JD
 from gennet_tpu_torch import convert
-from gennet_tpu_torch.models import BBHGenerator, DualBranchPE, PairDiscriminator
+from gennet_tpu_torch.models import BBHGenerator, CombinedPE, DualBranchPE, PairDiscriminator
 from gennet_tpu_torch.models.layers import Conv1d
 
 N, B = 256, 6
@@ -172,3 +173,113 @@ def test_init_reproducible_from_generator():
     b = reset_module(BBHGenerator(n_out=64, features=G_FEAT), torch.Generator().manual_seed(1))
     for (k, v), w in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(v, w), k
+
+
+# ---- BBHGenerator(norm="group" | "none") and CombinedPE (the options
+# --g-norm and --comb-pe-model); the same tolerance
+
+@pytest.mark.parametrize("norm", ["group", "none"])
+@pytest.mark.parametrize("train", [False, True])
+def test_generator_norm_variants_match(norm, train):
+    # GroupNorm (groups of 16, eps 1e-6) is batch-independent: train mode
+    # differs from eval mode only by dropout, here off (drate 0)
+    jg = JG(n_out=N, features=G_FEAT, drate=0.0, norm=norm)
+    z = np.random.default_rng(9).uniform(-1, 1, (B, 100)).astype(np.float32)
+    params = _perturb(jg.init({"params": jax.random.PRNGKey(4)}, jnp.asarray(z))["params"], 10)
+    ref = jg.apply({"params": params}, jnp.asarray(z), train=train)
+    tg = BBHGenerator(n_out=N, features=G_FEAT, drate=0.0, norm=norm)
+    sd = convert.flax_to_torch_generator(params)
+    assert set(sd) == set(tg.state_dict())  # GroupNorm scale/bias → weight/bias; none: no norm
+    tg.load_state_dict(sd)
+    with torch.no_grad():
+        out = tg(torch.tensor(z), train=train, commit_stats=train)
+    _close(out, ref)
+    assert not list(tg.buffers())  # nothing batch-dependent to carry
+
+
+def test_generator_refuses_an_unknown_norm():
+    # the reference's module runs any other string as "none"
+    with pytest.raises(ValueError, match="norm"):
+        BBHGenerator(n_out=N, features=G_FEAT, norm="grp")
+
+
+def test_posterior_sampler_clone_needs_the_same_norm():
+    # run_bbh's posterior_drate sampler runs the state's weights through a
+    # second G: built with another norm it silently reads its own BN
+    # buffers, so it must be built with cfg.g_norm (workloads.py:1451-1453)
+    z = torch.tensor(np.random.default_rng(11).uniform(-1, 1, (4, 100)).astype(np.float32))
+    G = BBHGenerator(n_out=N, features=G_FEAT, drate=0.0, norm="group")
+    weights = dict(G.named_parameters())
+    with torch.no_grad():
+        ref = G(z)
+        same = torch.func.functional_call(
+            BBHGenerator(n_out=N, features=G_FEAT, drate=0.3, norm="group"), weights, (z,))
+        other = torch.func.functional_call(
+            BBHGenerator(n_out=N, features=G_FEAT, drate=0.3, norm="batch"), weights, (z,))
+    assert torch.equal(same, ref)
+    assert not torch.allclose(other, ref, atol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def combined_pair():
+    jp = JCPE()
+    x = np.random.default_rng(12).normal(size=(B, N, 1)).astype(np.float32)
+    v = jp.init({"params": jax.random.PRNGKey(5), "dropout": jax.random.PRNGKey(6)},
+                jnp.asarray(x))
+    params = _perturb(v["params"], 13, 0.02)
+    stats = jax.tree_util.tree_map(lambda a: np.abs(a) + 0.5, _perturb(v["batch_stats"], 14, 0.3))
+    return jp, params, stats, x
+
+
+def _combined(params, stats):
+    tp = CombinedPE(n_pix=N)
+    tp.load_state_dict(convert.flax_to_torch_combined_pe(params, stats))
+    return tp
+
+
+def test_combined_pe_eval_matches(combined_pair):
+    jp, params, stats, x = combined_pair
+    ref = jp.apply({"params": params, "batch_stats": stats}, jnp.asarray(x), train=False)
+    with torch.no_grad():
+        out = _combined(params, stats)(torch.tensor(x))
+    assert out.shape == (B, 2)
+    _close(out, ref)
+
+
+def test_combined_pe_train_matches_and_commits_flax_stats(combined_pair, monkeypatch):
+    # train mode: batch statistics, committed with momentum 0.9 as the JAX
+    # cnn_update does; the Dropout(0.5) masks differ between the packages'
+    # generators, so both are switched off here (and checked below)
+    jp, params, stats, x = combined_pair
+    import gennet_tpu_torch.models.cnn_pe as tpe
+
+    monkeypatch.setattr(fnn.Dropout, "__call__", lambda self, y, *a, **k: y)
+    monkeypatch.setattr(tpe, "dropout", lambda y, rate, active, gen: y)
+    ref, mut = jp.apply({"params": params, "batch_stats": stats}, jnp.asarray(x), train=True,
+                        mutable=["batch_stats"])
+    tp = _combined(params, stats)
+    with torch.no_grad():
+        out = tp(torch.tensor(x), train=True)
+    _close(out, ref)
+    want = convert.flax_to_torch_combined_pe(params, jax.device_get(mut["batch_stats"]))
+    for k, v in tp.state_dict().items():
+        if "running" in k:
+            np.testing.assert_allclose(v.numpy(), want[k].numpy(), rtol=1e-5, atol=1e-6,
+                                       err_msg=k)
+
+
+def test_combined_pe_dropout_and_init(combined_pair):
+    _, params, stats, x = combined_pair
+    tp = _combined(params, stats)
+    xt = torch.tensor(x)
+    with torch.no_grad():
+        a = tp(xt, train=True, gen=torch.Generator().manual_seed(1))
+        tp.load_state_dict(convert.flax_to_torch_combined_pe(params, stats))
+        b = tp(xt, train=True, gen=torch.Generator().manual_seed(1))
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        tp(xt, train=True)  # dropout is active: it needs a generator
+    from gennet_tpu_torch.models.layers import reset_module
+
+    fresh = reset_module(CombinedPE(n_pix=N), torch.Generator().manual_seed(0))
+    assert all(float(p.negative_slope.detach()) == pytest.approx(0.01) for p in fresh.prelus)

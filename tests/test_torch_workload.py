@@ -9,8 +9,10 @@
     tests/test_workloads.py::test_bbh_workload_tiny.
 (c) Options the port does not implement raise, and so do values the
     reference refuses. The options this port implements beyond the default
-    recipe are driven in tests/test_torch_workload_routes.py and (the
-    residual-route family) tests/test_torch_workload_burst.py.
+    recipe are driven in tests/test_torch_workload_routes.py, (the
+    residual-route family) tests/test_torch_workload_burst.py and (resume,
+    the CNN cache, bank files, lalinference products, ``comb_pe_model``,
+    ``g_norm``) tests/test_torch_workload_staged.py.
 
 Tolerances as in the per-module tests: templates 1e-4·max (the event 3e-4,
 see tests/test_torch_bank.py), forward values 1e-4·max, losses rtol 1e-4,
@@ -173,10 +175,7 @@ def test_port_run_bbh_tiny(tmp_path):
     assert len(snaps) == 3 and np.load(snaps[-1])["samples"].shape == (8, 2)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("lalinf_dir", "x"), ("bank_file", "x"), ("cnn_cache", "x"), ("resume", True),
-    ("bf16", True), ("comb_pe_model", True), ("plots", True), ("g_norm", "group"),
-])
+@pytest.mark.parametrize("field,value", [("bf16", True), ("plots", True)])
 def test_unported_options_raise(tmp_path, field, value):
     cfg = twl.BBHConfig(plots=False, out_dir=str(tmp_path / "x"))
     with pytest.raises(NotImplementedError, match=field):

@@ -6,7 +6,7 @@ whole runs of the port on the CPU.
   default recipe, the bootstrap sampler with the terminal anneal, and the
   ELBO library selection; the early stop after a random restart, which
   clears the abandoned attempt's posterior clouds from disk.
-- The reference's ValueErrors, the unported options, ``BurstSmokeConfig``'s
+- The reference's ValueErrors, the unported option (plots), ``BurstSmokeConfig``'s
   fields and defaults, and the ``smoke`` CLI's refusals.
 - Tiny ``run_bbh`` runs with the residual-route options under
   ``conv_impl`` xla and pallas (the conv op's plain version on the CPU),
@@ -119,8 +119,9 @@ def test_burst_smoke_refuses_what_the_reference_refuses(tmp_path, field, value):
     assert not (tmp_path / "burst").exists()
 
 
-@pytest.mark.parametrize("field,value", [("cnn_cache", "x"), ("plots", True)])
+@pytest.mark.parametrize("field,value", [("plots", True)])
 def test_burst_smoke_unported_options_raise(tmp_path, field, value):
+    # the CNN cache is ported: tests/test_torch_workload_staged.py
     cfg = dataclasses.replace(_tiny_burst(tmp_path), **{field: value})
     with pytest.raises(NotImplementedError, match=field):
         twl.run_burst_smoke(cfg, device="cpu")
