@@ -49,9 +49,24 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    new steps only, the restored state bitwise the saved one), and
    ``sample-posterior --conv-impl pallas --pe-mlrc 1`` (4000 finite draws,
    both kernels launched), with each stage's wall time;
-11. throughput (information): bank templates/s, PE steps/s, GAN steps/s
+11. slice 6: the reference's default flags, ``--bf16`` and the real-event
+   route through the CLI at full width: ``train-bbh --bf16 true`` under
+   ``--conv-impl`` xla and pallas (20 PE and 20 GAN steps and the final
+   4000-draw eval; every logged loss finite, β and grid overlap in [0, 1],
+   under pallas exactly 25 conv launches a GAN step and 80 for the draw);
+   a product directory written by the port's ``write_synthetic_products``
+   without the posterior file, its norm read back, ``make-bank
+   --lalinf-dir`` on it and ``train-bbh --lalinf-dir --bank-file`` scored
+   against the exact grid, with the phasor kernel's launches; and the plots:
+   whether matplotlib imports here, then either a short ``train-bbh`` and
+   ``smoke`` with plots on (their png names checked) or ``train-bbh`` with
+   default flags refused before any work with an error naming matplotlib;
+12. throughput (information): bank templates/s, PE steps/s, GAN steps/s
    with ``conv_impl`` xla and pallas in turns, each kernel's launches per
-   GAN step and per synthesis, and the burst PE and GAN steps/s.
+   GAN step and per synthesis, the burst PE and GAN steps/s, and (slice 6)
+   GAN steps/s and the wall time of a 4000-draw posterior, bf16 against
+   float32 under both implementations, in turns, three runs a side, with
+   the conv kernel's launches per step and per draw in both dtypes.
 
 Every timed kernel call prints its bound: the larger of its operations
 over 165 TFLOP/s (the 3xTF32 ceiling: 495 TFLOP/s of TF32 over three
@@ -391,6 +406,232 @@ def slice5(cli_main, P, CV, build, card) -> tuple:
             "stage_s": stage_s, "launches": launches, "posterior_mean": samples.mean(0).tolist(),
             "posterior_std": samples.std(0).tolist()}))
     return launches, stage_s
+
+
+def slice6_bf16(cli_main, P, CV, build, card, n_synth) -> dict:
+    """``train-bbh --bf16 true`` through the CLI with the default recipe at
+    n_pix 1024 under ``--conv-impl`` xla and pallas: 20 PE and 20 GAN
+    steps, then the final 4000-draw eval. Returns {impl: (phasor, conv)
+    launches}."""
+    import torch
+
+    launches = {}
+    for impl in ("xla", "pallas"):
+        with tempfile.TemporaryDirectory(dir=build) as out_dir:
+            argv = ["train-bbh", "--device", "cuda", "--bf16", "true", "--conv-impl", impl,
+                    "--pe-iters", "20", "--gan-iters", "20", "--cadence", "10", "--pe-cadence",
+                    "10", "--eval-cadence", "100000", "--ckpt-every", "100000", "--plots",
+                    "false", "--out-dir", out_dir]
+            P.LAUNCHES = CV.LAUNCHES = 0
+            t0 = time.perf_counter()
+            out = cli_main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[impl] = (P.LAUNCHES, CV.LAUNCHES)
+            rows = read_rows(os.path.join(out_dir, "bbh_metrics.jsonl"))
+        losses = [(r["step"], k, r[k]) for r in rows for k in r if k.endswith("_loss")]
+        n_gan = sum(1 for r in rows if "d_loss" in r)
+        n_pe = sum(1 for r in rows if "pe_loss" in r)
+        bad = [x for x in losses if not math.isfinite(x[2])]
+        if bad or (n_pe, n_gan) != (2, 2):
+            fail(f"slice 6 bf16 {impl}: non-finite losses {bad}, {n_pe} PE and {n_gan} GAN rows")
+        for key in ("beta", "grid_overlap"):
+            v = out[key]
+            if not isinstance(v, float) or not 0.0 <= v <= 1.0:
+                fail(f"slice 6 bf16 {impl}: {key} = {v!r}, expected a float in [0, 1]")
+        # the float32 count (slice 5, and per step and per draw below): 25 a
+        # GAN step, 16 draw chunks × 5 for the 4000-draw eval
+        conv_expect = 20 * 25 + 5 * math.ceil(4000 / 256) if impl == "pallas" else 0
+        ph, cv = launches[impl]
+        print(f"slice 6: train-bbh --bf16 true --conv-impl {impl} finished in {wall:.1f} s; "
+              f"kernel launches phasor {ph} (≥ {3 * n_synth} expected), conv {cv} "
+              f"({conv_expect} expected); losses finite over {len(losses)} logged values; "
+              f"beta {out['beta']:.4f}, grid overlap {out['grid_overlap']:.4f} [{card}]")
+        if cv != conv_expect or ph < 3 * n_synth:
+            fail(f"slice 6 bf16 {impl}: launches phasor {ph}, conv {cv}; expected "
+                 f"≥ {3 * n_synth} and {conv_expect}")
+    return launches
+
+
+def slice6_products(cli_main, P, CV, build, card) -> dict:
+    """The real-event route on a product directory the port writes itself
+    (``write_synthetic_products(posterior=False)``: the card's machine has
+    no h5py): its norm read back by the loader, ``make-bank --lalinf-dir``
+    of 50,000 templates, and ``train-bbh --lalinf-dir --bank-file`` on that
+    bank, scored against the exact grid (no posterior file). Returns
+    {stage: (phasor, conv) launches}."""
+    import torch
+
+    from gennet_tpu_torch.data import lalinf_io, synth_products
+
+    launches = {}
+    with tempfile.TemporaryDirectory(dir=build) as work:
+        prod = os.path.join(work, "products")
+        t0 = time.perf_counter()
+        written = synth_products.write_synthetic_products(prod, seed=0, posterior=False)
+        write_s = time.perf_counter() - t0
+        names = sorted(os.listdir(prod))
+        if len(names) != 3 or not all(n.endswith(".dat") for n in names):
+            fail(f"slice 6: the product directory holds {names}")
+        norm = lalinf_io.load_event_products(prod)["norm_constant"]
+        rel = abs(norm - written["norm_constant"]) / written["norm_constant"]
+        print(f"slice 6: wrote {len(names)} product files in {write_s:.2f} s; norm_constant read "
+              f"back {norm:.9g}, written {written['norm_constant']:.9g} (relative difference "
+              f"{rel:.2e}, limit 1e-6) [{card}]")
+        if not rel <= 1e-6:
+            fail(f"slice 6: the loader's norm_constant {norm} is not the writer's "
+                 f"{written['norm_constant']}")
+        bank, run = os.path.join(work, "bank.gntb"), os.path.join(work, "run")
+        for stage, argv in (
+                ("make-bank", ["make-bank", "--device", "cuda", "--lalinf-dir", prod, "-b", bank]),
+                ("train-bbh", ["train-bbh", "--device", "cuda", "--lalinf-dir", prod,
+                               "--bank-file", bank, "--pe-iters", "20", "--gan-iters", "20",
+                               "--cadence", "10", "--pe-cadence", "10", "--eval-cadence",
+                               "100000", "--ckpt-every", "100000", "--plots", "false",
+                               "--out-dir", run])):
+            P.LAUNCHES = CV.LAUNCHES = 0
+            t0 = time.perf_counter()
+            out = cli_main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[stage] = (P.LAUNCHES, CV.LAUNCHES)
+            print(f"slice 6: {stage} --lalinf-dir finished in {wall:.1f} s; kernel launches "
+                  f"phasor {P.LAUNCHES}, conv {CV.LAUNCHES} [{card}]")
+    # make-bank: 13 batches of 4096 and the twin, 3 launches a synthesis;
+    # train-bbh: no event or bank synthesis, the grid's 3 chunks of 4096
+    # and the sanity set drawn from it
+    expect = {"make-bank": (3 * (math.ceil(49_999 / 4096) + 1), 0),
+              "train-bbh": (3 * (math.ceil(95 * 95 / 4096) + 1), 0)}
+    if launches != expect:
+        fail(f"slice 6: lalinf-dir launches {launches}, expected {expect}")
+    go, beta = out["grid_overlap"], out["beta"]
+    if not (isinstance(go, float) and 0.0 <= go <= 1.0 and isinstance(beta, float)
+            and 0.0 <= beta <= 1.0):
+        fail(f"slice 6: train-bbh --lalinf-dir scored grid overlap {go!r}, beta {beta!r}: "
+             "without a posterior file it must score against the exact grid")
+    print("slice 6 products summary: " + json.dumps({k: out[k] for k in (
+        "final_step", "beta", "grid_overlap", "cnn_sanity_beta", "pe_rms")}))
+    return launches
+
+
+def slice6_plots(cli_main, build, card) -> str:
+    """The plots with the reference's default flags: whether matplotlib
+    imports here, then either a short ``train-bbh`` and ``smoke`` with
+    plots on, their png names checked, or ``train-bbh`` with default flags
+    refused before any work, with an error naming matplotlib. Returns the
+    branch that ran."""
+    try:
+        import matplotlib  # noqa: F401
+        have = True
+    except ImportError:
+        have = False
+    print(f"slice 6: matplotlib imports on this machine: {have}")
+    with tempfile.TemporaryDirectory(dir=build) as work:
+        out_dir = os.path.join(work, "run")
+        if not have:
+            proc = subprocess.run([sys.executable, "-m", "gennet_tpu_torch.cli.main", "train-bbh",
+                                   "--out-dir", out_dir], cwd=REPO, capture_output=True,
+                                  text=True, timeout=300)
+            last = (proc.stderr.strip().splitlines() or [""])[-1]
+            print(f"slice 6: train-bbh with default flags exited {proc.returncode}: {last}")
+            if proc.returncode == 0 or "matplotlib" not in last or os.path.exists(out_dir):
+                fail("slice 6: without matplotlib, train-bbh with default flags must exit "
+                     "non-zero before any work, naming matplotlib")
+            return "refused without matplotlib"
+        t0 = time.perf_counter()
+        cli_main(["train-bbh", "--pe-iters", "20", "--gan-iters", "20", "--cadence", "10",
+                  "--pe-cadence", "10", "--eval-cadence", "10", "--ckpt-every", "100000",
+                  "--out-dir", out_dir])
+        bbh_s = time.perf_counter() - t0
+        want = {f"{f}{i:05d}.png" for i in (10, 20) for f in (
+            "pe_accuracy", "waveform_results", "waveform_zoomed_results", "pe_samples")}
+        want |= {"losses.png", "beta_hist.png", "waveform_final.png", "pe_samples_final.png",
+                 "latest/pe_accuracy.png", "latest/most_recent_waveform.png",
+                 "latest/most_recent_waveform_zoomed.png", "latest/pe_samples.png",
+                 "latest/beta_hist.png"}
+        got = {os.path.relpath(os.path.join(r, f), out_dir) for r, _, fs in os.walk(out_dir)
+               for f in fs if f.endswith(".png")}
+        if got != want:
+            fail(f"slice 6: train-bbh wrote pngs {sorted(got)}, expected {sorted(want)}")
+        smoke_dir = os.path.join(work, "smoke")
+        t0 = time.perf_counter()
+        cli_main(["smoke", "--pe-iters", "200", "--gan-iters", "200", "--cadence", "100",
+                  "--out-dir", smoke_dir])
+        smoke_s = time.perf_counter() - t0
+        got_s = {os.path.relpath(os.path.join(r, f), smoke_dir)
+                 for r, _, fs in os.walk(smoke_dir) for f in fs if f.endswith(".png")}
+        need = {"losses.png", "waveform_final.png", "pe_samples_final.png",
+                "latest/most_recent_waveform.png", "latest/pe_samples.png"}
+        if not need <= got_s:
+            fail(f"slice 6: smoke wrote pngs {sorted(got_s)}, expected at least {sorted(need)}")
+        print(f"slice 6: with plots on, train-bbh ({bbh_s:.1f} s) wrote the {len(got)} expected "
+              f"pngs, smoke ({smoke_s:.1f} s) {len(got_s)} [{card}]")
+    return "plots written"
+
+
+def bf16_against_f32(pe, bank, measured, g, dev, card) -> dict:
+    """GAN steps/s (default recipe, batch 8) and the wall time of a
+    4000-draw posterior (G's draws in chunks of 256 through the PE), bf16
+    against float32 under each ``conv_impl``, in turns f32, bf16, bf16, f32,
+    f32, bf16; and the conv kernel's launches per GAN step and per draw
+    under pallas in both dtypes. Returns the rates, times and launches."""
+    import torch
+
+    from gennet_tpu_torch.models import BBHGenerator, PairDiscriminator
+    from gennet_tpu_torch.ops import conv1d as CV
+    from gennet_tpu_torch.train import cnn as tcnn
+    from gennet_tpu_torch.train import gan as tgan
+
+    n_pix = bank.shape[1]
+    gan_cfg = tgan.GANConfig(n_pix=n_pix, label_smoothing=True, d_instance_noise=0.3,
+                             d_lr_scale=0.5, d_acc_gate=0.9)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    states = {(impl, name): tgan.init_gan(
+        torch.Generator().manual_seed(2), BBHGenerator(n_out=n_pix, conv_impl=impl, dtype=dt),
+        PairDiscriminator(n_pix=n_pix, conv_impl=impl, dtype=dt), gan_cfg, dev)
+        for impl in ("xla", "pallas") for name, dt in dtypes.items()}
+
+    def draw_s(st) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wf = tgan.sample_generator(st.generator, st, g, 4000, gan_cfg)
+        tcnn.predict(pe, wf, use_ema=True).cpu()
+        return time.perf_counter() - t0
+
+    res = {"steps_per_s": {}, "draw_s": {}, "conv_per_step": {}, "conv_per_draw": {}}
+    for impl in ("xla", "pallas"):
+        for name in dtypes:
+            draw_s(states[(impl, name)])  # warm-up
+            res["steps_per_s"][f"{impl} {name}"], res["draw_s"][f"{impl} {name}"] = [], []
+        for name in ("f32", "bf16", "bf16", "f32", "f32", "bf16"):
+            st = states[(impl, name)]
+            res["steps_per_s"][f"{impl} {name}"].append(steps_per_s(
+                lambda: tgan.gan_step(st, bank, measured, g, cfg=gan_cfg)))
+            res["draw_s"][f"{impl} {name}"].append(draw_s(st))
+    for name in dtypes:
+        st = states[("pallas", name)]
+        CV.LAUNCHES = 0
+        for _ in range(4):
+            tgan.gan_step(st, bank, measured, g, cfg=gan_cfg)
+        res["conv_per_step"][name] = CV.LAUNCHES / 4
+        CV.LAUNCHES = 0
+        draw_s(st)
+        res["conv_per_draw"][name] = CV.LAUNCHES
+    fmt = lambda xs: "/".join(f"{x:.1f}" for x in xs)  # noqa: E731
+    fms = lambda xs: "/".join(f"{1e3 * x:.0f}" for x in xs)  # noqa: E731
+    for impl in ("xla", "pallas"):
+        print(f"throughput bf16 vs float32, conv_impl {impl} (order f32, bf16, bf16, f32, f32, "
+              f"bf16; 50 steps each): GAN steps/s f32 {fmt(res['steps_per_s'][impl + ' f32'])}, "
+              f"bf16 {fmt(res['steps_per_s'][impl + ' bf16'])}; 4000-draw posterior ms f32 "
+              f"{fms(res['draw_s'][impl + ' f32'])}, bf16 {fms(res['draw_s'][impl + ' bf16'])} "
+              f"[{card}]")
+    print(f"conv kernel launches under pallas: per GAN step f32 {res['conv_per_step']['f32']:g}, "
+          f"bf16 {res['conv_per_step']['bf16']:g}; per 4000-draw posterior f32 "
+          f"{res['conv_per_draw']['f32']}, bf16 {res['conv_per_draw']['bf16']}")
+    if res["conv_per_step"]["bf16"] != res["conv_per_step"]["f32"] or \
+            res["conv_per_draw"]["bf16"] != res["conv_per_draw"]["f32"]:
+        fail("bf16 under pallas launched the conv kernel another number of times than float32")
+    return res
 
 
 def main():
@@ -779,7 +1020,16 @@ def main():
     # ---- 10. slice 5: the staged pipeline through the CLI -------------------
     launches_5, _ = slice5(cli_main, P, CV, build, card)
 
-    # ---- 11. throughput (information, warm, same process) -------------------
+    # ---- 11. slice 6: --bf16, --lalinf-dir on the port's products, plots ---
+    launches_6 = {f"bf16 {k}": v for k, v in slice6_bf16(cli_main, P, CV, build, card,
+                                                          n_synth).items()}
+    launches_6.update({f"lalinf {k}": v for k, v in slice6_products(cli_main, P, CV, build,
+                                                                    card).items()})
+    plots_branch = slice6_plots(cli_main, build, card)
+    print(f"slice 6: plots branch that ran: {plots_branch}")
+    print("slice 6 launches (phasor, conv): " + json.dumps(launches_6))
+
+    # ---- 12. throughput (information, warm, same process) -------------------
     from gennet_tpu_torch.models import BBHGenerator, DualBranchPE, PairDiscriminator
     from gennet_tpu_torch.train import cnn as tcnn
     from gennet_tpu_torch.train import gan as tgan
@@ -841,6 +1091,7 @@ def main():
     burst_pe_rate = steps_per_s(lambda: tcnn.cnn_step(b_pe, b_bank, b_pars, g, cfg=b_pe_cfg))
     burst_gan_rates = [steps_per_s(lambda: tgan.gan_step(b_gan, b_bank, b_meas, g, cfg=b_gan_cfg))
                        for _ in range(2)]
+    bf16_res = bf16_against_f32(pe, bank, measured, g, dev, card)
     mlrc_s, mlrc_launches = ml_recenter_seconds(g, dev)
     fmt =lambda r: "/".join(f"{x:.1f}" for x in r)
     print(f"throughput: bank {bank_rate:.0f} templates/s (n_pix 1024, batches of 4096), "
@@ -862,9 +1113,10 @@ def main():
         return {"shape": " ".join(map(str, shape)) if isinstance(shape, tuple) else shape,
                 "ms": k, "plain_ms": p, "ratio": k / p}
 
-    # launches: slice 5, this slice's path, which runs both kernels (every
+    # launches: slice 6, this slice's path, which runs both kernels (every
     # path's count under launches_by_path); times and bounds: pass B and
     # G Conv_4's forward at batch 8, the largest call of each on the train path
+    print("slice 6 bf16 vs float32 summary: " + json.dumps(bf16_res))
     k_ms, p_ms = times["pass B"]
     ck_ms, cp_ms = conv_times[("G Conv_4", "fwd", 8)]
     (pb_ms, pb_by), (cb_ms, cb_by) = bounds["pass B"], conv_bounds[("G Conv_4", "fwd", 8)]
@@ -872,22 +1124,26 @@ def main():
         "name": "phasor_irdft_f32", "route": "cuda",
         "source": "gennet_tpu_torch/csrc/phasor_irdft.cu",
         "replaces": "gennet_tpu/ops/phasor_dft.py:25",
-        "launches": launches_5["phasor"], "max_abs_err": max(err_a, err_b), "ms": k_ms,
+        "launches": sum(v[0] for v in launches_6.values()), "max_abs_err": max(err_a, err_b),
+        "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": lib_ms["pass B"],
         "ms_worst_ratio": worst(times),
         "launches_by_path": {"slice 1": launches, "slice 2": phasor_launches,
                              "slice 3": phasor_launches_3, "slice 4": launches_4[0],
-                             "slice 5": launches_5["phasor"]},
+                             "slice 5": launches_5["phasor"],
+                             **{f"slice 6 {k}": v[0] for k, v in launches_6.items()}},
     }, {
         "name": "conv1d_same_f32", "route": "cuda",
         "source": "gennet_tpu_torch/csrc/conv1d_same.cu",
         "replaces": "gennet_tpu/ops/pallas_conv1d.py:50",
-        "launches": launches_5["conv"], "max_abs_err": conv_err, "ms": ck_ms, "plain_ms": cp_ms,
+        "launches": sum(v[1] for v in launches_6.values()), "max_abs_err": conv_err, "ms": ck_ms,
+        "plain_ms": cp_ms,
         "bound_ms": cb_ms, "bound_by": cb_by, "library_ms": lib_ms["conv"],
         "ms_worst_ratio": worst(conv_times),
         "launches_by_path": {"slice 1": conv_launches_1, "slice 2": conv_launches,
                              "slice 3": conv_launches_3, "slice 4": launches_4[1],
-                             "slice 5": launches_5["conv"]},
+                             "slice 5": launches_5["conv"],
+                             **{f"slice 6 {k}": v[1] for k, v in launches_6.items()}},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,11 +9,12 @@ field is a flag (``--pe-iters``, ``--grid-grain``, …), ``make-bank`` takes
 ``--data-parallel`` is accepted where the JAX CLI has it and refused when
 given: data parallelism is not ported yet.
 
-The reference's staged workflow:
+The reference's staged workflow (plots are on by default and need
+matplotlib; ``--plots false`` turns them off):
 
     python -m gennet_tpu_torch.cli.main make-bank -b templates/bank.gntb
-    python -m gennet_tpu_torch.cli.main train-cnn --bank-file templates/bank.gntb --plots false
-    python -m gennet_tpu_torch.cli.main train-gan --bank-file templates/bank.gntb --plots false
+    python -m gennet_tpu_torch.cli.main train-cnn --bank-file templates/bank.gntb
+    python -m gennet_tpu_torch.cli.main train-gan --bank-file templates/bank.gntb
     python -m gennet_tpu_torch.cli.main sample-posterior --out posterior.npz
 """
 

@@ -22,9 +22,11 @@
   anneal and selection.
 
 The configs keep every field and default of the JAX configs, so the flags
-are identical. Options this port does not implement yet raise
-``NotImplementedError`` naming their ROADMAP item when set away from their
-defaults; none is silently ignored.
+are identical, and every option is ported: ``bf16`` computes G and D in
+bfloat16 (parameters float32), and ``plots`` (on by default) writes the
+reference's dashboards through :mod:`gennet_tpu_torch.eval.plots`. What
+the reference refuses, or cannot run, is refused before any work, and so
+is ``plots=True`` without matplotlib.
 """
 
 import copy
@@ -43,6 +45,7 @@ from gennet_tpu_torch.data import template_bank as tb
 from gennet_tpu_torch.data.bankstore import BankStore
 from gennet_tpu_torch.eval import grid_posterior as gp
 from gennet_tpu_torch.eval import overlap as ov
+from gennet_tpu_torch.eval import plots
 from gennet_tpu_torch.eval import posterior_post as pp
 from gennet_tpu_torch.eval.whiteness import posterior_whiteness
 from gennet_tpu_torch.models import (BBHGenerator, BurstDiscriminator, BurstGenerator, BurstPE,
@@ -125,8 +128,9 @@ class BBHConfig:
     bank_file: str | None = None
 
 
-# field → ROADMAP item of the port that brings it
-_UNPORTED = {"bf16": "queue 1 #4 (reduced precision)"}
+# bank rows the PE-accuracy plot draws, without replacement, at each PE
+# cadence step (ref: workloads.py:1361)
+_PE_PLOT_ROWS = 4000
 
 # the PE phase's own generator: seed + this offset (seed + 1 and + 2 seed
 # the PE and GAN weights), so a CNN-cache hit leaves the later draws as
@@ -151,12 +155,10 @@ def _check_common(cfg):
                          "would silently never freeze")
 
 
-def check_ported(cfg: BBHConfig):
+def check_bbh_config(cfg: BBHConfig):
     """Raise ValueError for option values the reference refuses too (and
     for R1 under ``conv_impl="pallas"``, which the reference cannot run),
-    and NotImplementedError for any option set away from its default that
-    this port does not implement yet, and for ``plots=True`` (plots are not
-    ported; pass ``--plots false``)."""
+    and ImportError for ``plots=True`` without matplotlib."""
     if cfg.conv_impl not in ("xla", "pallas"):
         raise ValueError(f"conv_impl={cfg.conv_impl!r}: must be 'xla' or 'pallas'")
     if cfg.g_norm not in ("batch", "group", "none"):
@@ -171,13 +173,23 @@ def check_ported(cfg: BBHConfig):
                          "gradient again, and neither the conv kernel nor the reference's "
                          "Pallas conv (conv1d_train) has a second derivative; use "
                          "conv_impl='xla' for R1")
-    defaults = BBHConfig()
-    off = [f"{k} (ROADMAP {item})" for k, item in _UNPORTED.items()
-           if getattr(cfg, k) != getattr(defaults, k)]
     if cfg.plots:
-        off.append("plots (ROADMAP queue 1 #13; pass --plots false)")
-    if off:
-        raise NotImplementedError("not ported yet: " + "; ".join(off))
+        plots.require_matplotlib()
+
+
+def check_pe_plot_draw(cfg: BBHConfig, n_rows: int, start: int):
+    """The PE-accuracy plot draws 4000 bank rows without replacement at each
+    PE cadence step, as the reference does (``choice(n_rows, 4000,
+    replace=False)``, ref: workloads.py:1361), and that draw fails for a
+    smaller bank. Refuse such a run with the reason before PE training (the
+    reference raises numpy's error at the first cadence step)."""
+    reached = cfg.pe_iters // cfg.pe_cadence > start // cfg.pe_cadence
+    if cfg.plots and reached and n_rows < _PE_PLOT_ROWS:
+        raise ValueError(
+            f"plots=True with a bank of {n_rows} rows: the PE-accuracy plot draws "
+            f"{_PE_PLOT_ROWS} bank rows without replacement at each pe_cadence step, as the "
+            f"reference does, which a bank under {_PE_PLOT_ROWS} rows cannot give; use a larger "
+            "bank, a pe_cadence beyond pe_iters, or --plots false")
 
 
 def bbh_cnn_cache_tag(cfg: BBHConfig) -> str:
@@ -213,7 +225,8 @@ def _bbh_bank_cfg(cfg: BBHConfig):
 
 def _prepare_bbh_data(cfg: BBHConfig, gen: torch.Generator, device, skip_bank: bool = False):
     """Event and bank, all on ``device`` (ref: workloads.py:1168-1225).
-    Returns (bank, targets, signal, measured, norm, psd, lalinf_samples).
+    Returns (bank, targets, signal, measured, norm, psd, truth,
+    lalinf_samples); ``truth`` is the (mc, q) point the plots mark.
 
     - ``lalinf_dir``: PSD, event and norm come from the lalinference
       products, and ``lalinf_samples`` is their (mc, q) posterior (None
@@ -259,7 +272,12 @@ def _prepare_bbh_data(cfg: BBHConfig, gen: torch.Generator, device, skip_bank: b
         # drop the event-twin last template from training (ref: bbhMahoGANy.py:1033-1036)
         bank = templates[:-1]
         targets = torch.stack([params["mc"][:-1], params["q"][:-1]], dim=-1).to(torch.float32)
-    return bank, targets, signal, measured, norm, psd, lalinf_samples
+    if cfg.lalinf_dir:
+        truth = (30.0, 0.79)  # the event paper's point values (ref: :1064)
+    else:  # the injected template's own parameters
+        mc_t, _ = priors.chirp_mass_eta(bank_cfg.tmpl_m1, bank_cfg.tmpl_m2)
+        truth = (float(mc_t), bank_cfg.tmpl_m2 / bank_cfg.tmpl_m1)
+    return bank, targets, signal, measured, norm, psd, truth, lalinf_samples
 
 
 def _snapshot(state: GANState) -> GANState:
@@ -285,7 +303,7 @@ def run_bbh(cfg: BBHConfig, *, device):
     """Flagship pipeline on ``device``: CNN PE training, then GAN training
     with posterior validation against the exact grid posterior. Returns the
     same summary dict as the JAX workload."""
-    check_ported(cfg)
+    check_bbh_config(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
@@ -294,8 +312,8 @@ def run_bbh(cfg: BBHConfig, *, device):
         json.dump(dataclasses.asdict(cfg), f, indent=1)
     log = MetricLogger(cfg.out_dir, "bbh")
 
-    bank, targets, signal, measured, norm, psd, lalinf_samples = _prepare_bbh_data(cfg, gen,
-                                                                                    device)
+    bank, targets, signal, measured, norm, psd, truth, lalinf_samples = _prepare_bbh_data(
+        cfg, gen, device)
     bank_cfg = _bbh_bank_cfg(cfg)
     n_sig_eff = effective_n_sig(cfg, norm)
     print(f"effective noise std (residual/whiteness targets): {n_sig_eff:.4f}"
@@ -345,6 +363,7 @@ def run_bbh(cfg: BBHConfig, *, device):
     if pe_extra:
         pe_gen.set_state(pe_extra["gen"])
     start = pe_state.step
+    check_pe_plot_draw(cfg, bank.shape[0], start)
 
     def pe_save(step):
         pe_ckpt.save(step, pe_state, extra={"gen": pe_gen.get_state()})
@@ -362,6 +381,12 @@ def run_bbh(cfg: BBHConfig, *, device):
                     b = ov.beta_overlap(sane, ref_samples)
                     log.log(i, {"cnn_sanity_beta": b})
                     print(f"CNN sanity-check beta: {b:.4f}")
+            if cfg.plots:
+                idx = torch.as_tensor(np.random.default_rng(i).choice(
+                    bank.shape[0], _PE_PLOT_ROWS, replace=False), device=device)
+                est = cnn_predict(pe_state, bank[idx], use_ema=pe_use_ema).cpu().numpy()
+                plots.plot_pe_accuracy(targets[idx].cpu().numpy(), est, cfg.out_dir,
+                                       f"pe_accuracy{i:05d}.png")
         if i % cfg.ckpt_every == 0:
             pe_save(i)
     if cfg.pe_iters > start:
@@ -397,9 +422,11 @@ def run_bbh(cfg: BBHConfig, *, device):
                         res_loss_weight=cfg.res_loss_weight, res_eval_mode=cfg.res_eval_mode,
                         res_spectral_bands=cfg.res_spectral_bands,
                         g_ema_decay=cfg.g_ema_decay, debug_probes=cfg.debug_probes)
-    G = BBHGenerator(n_out=cfg.n_pix, norm=cfg.g_norm, conv_impl=cfg.conv_impl)
+    # bf16: G and D compute in bfloat16, their parameters stay float32
+    dtype = torch.bfloat16 if cfg.bf16 else torch.float32
+    G = BBHGenerator(n_out=cfg.n_pix, norm=cfg.g_norm, conv_impl=cfg.conv_impl, dtype=dtype)
     D = PairDiscriminator(n_pix=cfg.n_pix, in_ch=2 if cfg.pair_d else 1,
-                          conv_impl=cfg.conv_impl)
+                          conv_impl=cfg.conv_impl, dtype=dtype)
     gan_state = init_gan(torch.Generator().manual_seed(cfg.seed + 2), G, D, gan_cfg, device)
     gan_ckpt = CheckpointManager(os.path.join(cfg.out_dir, "ckpt_gan"))
     if cfg.resume:
@@ -416,7 +443,7 @@ def run_bbh(cfg: BBHConfig, *, device):
 
     if cfg.posterior_drate >= 0.0:
         G_samp = BBHGenerator(n_out=cfg.n_pix, drate=cfg.posterior_drate, norm=cfg.g_norm,
-                              conv_impl=cfg.conv_impl).to(device)
+                              conv_impl=cfg.conv_impl, dtype=dtype).to(device)
         samp_dropout = True
     else:
         G_samp, samp_dropout = G, cfg.posterior_dropout
@@ -486,7 +513,7 @@ def run_bbh(cfg: BBHConfig, *, device):
                 raw_row = {"beta_raw": ov.beta_overlap(samples_raw, ref_samples)}
                 if grid is not None:
                     raw_row["grid_overlap_raw"] = gp.grid_overlap_score(samples_raw, *grid)
-            log.log(step, raw_row)
+                log.log(step, raw_row)
         save_posterior_snapshot(os.path.join(cfg.out_dir, "GAN_posterior_samples"),
                                 step + 1 if tag == "final" else step, samples)
         # whiteness of the posterior-MEAN waveform's residual
@@ -528,7 +555,7 @@ def run_bbh(cfg: BBHConfig, *, device):
 
     base_knobs, anneal_knobs, anneal_start = _anneal_knobs(gan_cfg, cfg)
     gan_bank = gan_real_bank(cfg, bank, signal)
-    beta_hist = []
+    beta_hist, beta_steps = [], []
     best_white, best_state, best_gen = -1.0, None, None
     sel_score, sel_step = float("-inf"), None
     frozen_at = None
@@ -563,9 +590,18 @@ def run_bbh(cfg: BBHConfig, *, device):
                 break
             if ev["beta"] is not None:
                 beta_hist.append(ev["beta"])
+                beta_steps.append(i)
                 print(f"beta result: {ev['beta']}" +
                       ("" if ev["grid_overlap"] is None
                        else f"  grid overlap: {ev['grid_overlap']:.4f}"))
+            if cfg.plots:
+                sig, meas, wf = (t.cpu().numpy() for t in (signal, measured, ev["wf"]))
+                plots.plot_waveform_est(sig, meas, wf, cfg.out_dir, i)
+                plots.plot_waveform_est(sig, meas, wf, cfg.out_dir, i, zoom=(450, 550))
+                plots.plot_losses(log.arrays(), cfg.out_dir)
+                plots.plot_pe_samples(ev["samples"], truth, cfg.out_dir, i, ref_samples=ref_samples)
+                if beta_hist:
+                    plots.plot_beta_history(beta_hist, beta_steps, cfg.out_dir)
         if i % cfg.ckpt_every == 0:
             gan_save(i)
     gan_save(max(cfg.gan_iters, 1))
@@ -619,6 +655,12 @@ def run_bbh(cfg: BBHConfig, *, device):
                    else f"  beta vs sanity cloud: {beta_sanity_final:.4f}") +
                   ("" if grid_overlap_final is None
                    else f"  grid overlap: {grid_overlap_final:.4f}"))
+        if cfg.plots:
+            sig, meas, wf = (t.cpu().numpy() for t in (signal, measured, ev["wf"]))
+            plots.plot_waveform_est(sig, meas, wf, cfg.out_dir, cfg.gan_iters,
+                                    fname="waveform_final.png")
+            plots.plot_pe_samples(ev["samples"], truth, cfg.out_dir, cfg.gan_iters,
+                                  ref_samples=ref_samples, fname="pe_samples_final.png")
         if best_state is not None:
             gan_save(cfg.gan_iters + 1, best_state, best_gen)  # diagnostic state
 
@@ -795,12 +837,12 @@ class BurstSmokeConfig:
     plots: bool = True
 
 
-def check_burst_ported(cfg: BurstSmokeConfig):
-    """The reference's three ValueErrors, then NotImplementedError for
-    ``plots``, which are not ported."""
+def check_burst_config(cfg: BurstSmokeConfig):
+    """The reference's three ValueErrors, and ImportError for
+    ``plots=True`` without matplotlib."""
     _check_common(cfg)
     if cfg.plots:
-        raise NotImplementedError("not ported yet: plots (ROADMAP queue 1 #13; pass --plots false)")
+        plots.require_matplotlib()
 
 
 def burst_cnn_cache_tag(cfg: BurstSmokeConfig) -> str:
@@ -828,7 +870,7 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device):
     Step labels count completed iterations, as in :func:`run_bbh` (the JAX
     loop labels an unchunked run's cadence points one step early).
     """
-    check_burst_ported(cfg)
+    check_burst_config(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
@@ -836,9 +878,10 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device):
     log = MetricLogger(cfg.out_dir, "burst")
     snap_dir = os.path.join(cfg.out_dir, "GAN_posterior_samples")
 
-    # training bank and the fixed event (ref: :581,614-631)
+    # training bank and the fixed event at (t0, τ) = truth (ref: :581,614-631)
     bank, pars = make_burst_bank(gen, cfg.n_signals, N=cfg.n_pix)
-    signal = sine_gaussian(0.5, 1.0 / 25.0, N=cfg.n_pix, device=device)
+    truth = (0.5, 1.0 / 25.0)
+    signal = sine_gaussian(*truth, N=cfg.n_pix, device=device)
     measured = signal + cfg.n_sig * torch.randn(signal.shape, generator=gen, device=device)
     # exact grid posterior (ref: :716-726)
     L, gx, gy = gp.burst_grid_posterior(measured, cfg.n_sig, cfg.pe_grain)
@@ -1014,6 +1057,10 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device):
                           f" raw res_loss {res_raw:.2e}) — training frozen at {i}")
                     break
             log.log(i, diag)
+            if cfg.plots:
+                plots.plot_waveform_est(signal_np, measured_np, wf_np, cfg.out_dir, i)
+                plots.plot_pe_samples(samples, truth, cfg.out_dir, i, grid=(L, gx, gy))
+                plots.plot_losses(log.arrays(), cfg.out_dir)
         if frozen_at is not None:
             break
 
@@ -1054,6 +1101,11 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device):
         whiteness = posterior_whiteness(measured_np / cfg.n_sig,
                                         wf.cpu().numpy() / cfg.n_sig, 1.0)
         print(f"residual whiteness: {whiteness}")
+        if cfg.plots:
+            plots.plot_waveform_est(signal_np, measured_np, wf.cpu().numpy(), cfg.out_dir,
+                                    cfg.gan_iters, fname="waveform_final.png")
+            plots.plot_pe_samples(samples, truth, cfg.out_dir, cfg.gan_iters, grid=(L, gx, gy),
+                                  fname="pe_samples_final.png")
 
     log.close()
     return {"rms": rms, "pe_std": pe_std,

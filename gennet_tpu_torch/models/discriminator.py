@@ -18,16 +18,20 @@ class PairDiscriminator(nn.Module):
     Dense(1) logit. Takes (B, n_pix, in_ch): ``in_ch`` 2 for the pairs,
     1 for the raw series of ``pair_discriminator=False``. ``conv_impl`` as
     in :class:`~gennet_tpu_torch.models.generator.BBHGenerator` (under
-    ``"pallas"`` the first layer then runs the conv kernel at Cin 1)."""
+    ``"pallas"`` the first layer then runs the conv kernel at Cin 1).
+    ``dtype`` is the convs' compute dtype; the Dense computes in float32, so
+    the logits are float32 at every ``dtype``, as in the JAX module."""
 
     def __init__(self, features: Sequence[int] = (256, 512), filt: int = 5, drate: float = 0.4,
-                 alpha: float = 0.2, n_pix: int = 1024, in_ch: int = 2, conv_impl: str = "xla"):
+                 alpha: float = 0.2, n_pix: int = 1024, in_ch: int = 2, conv_impl: str = "xla",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.drate, self.alpha = drate, alpha
         self.convs = nn.ModuleList()
         cin, L = in_ch, n_pix
         for feat in features:
-            self.convs.append(conv1d_layer(conv_impl, cin, feat, filt, stride=2))
+            self.convs.append(conv1d_layer(conv_impl, cin, feat, filt, stride=2,
+                                           compute_dtype=dtype))
             cin, L = feat, -(-L // 2)
         self.dense = Dense(cin * L, 1)
 

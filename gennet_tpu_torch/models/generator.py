@@ -27,22 +27,28 @@ class BBHGenerator(nn.Module):
     Conv_0..n−1's implementation (``"xla"``: cuDNN, ``"pallas"``: the port's
     conv1d kernel); the 1-channel output conv is always :class:`Conv1d`, as
     in the JAX module. Parameters are the same under both.
+
+    ``dtype`` is the compute dtype of the Dense, the norms and
+    Conv_0..n−1 (``torch.bfloat16`` for ``--bf16``; the parameters and BN
+    statistics stay float32). The output conv computes in float32, so the
+    output is float32 at every ``dtype``, as in the JAX module.
     """
 
     def __init__(self, n_out: int = 1024, latent_dim: int = 100, filt: int = 5,
                  act: str = "tanh", drate: float = 0.2, bn_momentum: float = 0.99,
                  features: Sequence[int] = (64, 128, 256, 512, 1024), norm: str = "batch",
-                 conv_impl: str = "xla"):
+                 conv_impl: str = "xla", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_out, self.latent_dim, self.act_name, self.drate = n_out, latent_dim, act, drate
         half = n_out // 2
-        self.dense = Dense(latent_dim, 256 * half)
-        self.norms = nn.ModuleList([norm_layer(norm, 256 * half, bn_momentum)])
+        self.dense = Dense(latent_dim, 256 * half, compute_dtype=dtype)
+        self.norms = nn.ModuleList([norm_layer(norm, 256 * half, bn_momentum, dtype)])
         self.convs = nn.ModuleList()
         cin = 256
         for i, feat in enumerate(features):
-            self.convs.append(conv1d_layer(conv_impl, cin, feat, filt, stride=2 if i == 0 else 1))
-            self.norms.append(norm_layer(norm, feat, bn_momentum))
+            self.convs.append(conv1d_layer(conv_impl, cin, feat, filt, stride=2 if i == 0 else 1,
+                                           compute_dtype=dtype))
+            self.norms.append(norm_layer(norm, feat, bn_momentum, dtype))
             cin = feat
         self.out_conv = Conv1d(cin, 1, filt)
 

@@ -5,6 +5,17 @@ Layout: the networks keep the JAX package's public layouts ((B, L, C) in,
 Parameter init follows flax: lecun_normal (a normal truncated at ±2σ,
 variance 1/fan_in) for kernels, zeros for biases, drawn from an explicit
 ``torch.Generator``.
+
+Reduced precision follows flax's policy through explicit casts (no
+``torch.autocast``, whose op lists differ from flax's): a layer built with
+``compute_dtype`` computes in it, while its parameters and running
+statistics stay float32. :class:`Dense` and :class:`Conv1d` cast input,
+weight and bias to the compute dtype and return it (flax
+``promote_dtype``), adding the bias after the product is rounded to a
+reduced dtype, as flax does; the norms reduce their statistics and
+normalise in float32 and return the compute dtype (flax ``_normalize``
+with ``force_float32_reductions``); :class:`PallasConv1d` always runs
+the float32 kernel, as ``PallasConv1D`` does.
 """
 
 import math
@@ -27,8 +38,22 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator | None = No
     return w
 
 
+def _cast(dtype: torch.dtype, *tensors):
+    return tuple(t.to(dtype) for t in tensors)
+
+
 class Dense(nn.Linear):
-    """``nn.Linear`` with flax's init (weight (out, in) = kernelᵀ)."""
+    """``nn.Linear`` with flax's init (weight (out, in) = kernelᵀ), computing
+    in ``compute_dtype``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        x, w, b = _cast(self.compute_dtype, x, self.weight, self.bias)
+        return F.linear(x, w, b) if b.dtype == torch.float32 else F.linear(x, w) + b
 
     def reset_parameters(self, gen: torch.Generator | None = None):
         lecun_normal_(self.weight, self.in_features, gen)
@@ -42,15 +67,17 @@ class Conv1d(nn.Module):
     split low ``pad_total // 2``, high the rest (asymmetric at stride 2:
     (1, 2) for K = 5 and even L, where a symmetric ``padding=2`` would shift
     the output by one sample). ``"VALID"`` pads nothing. Weight layout
-    (Cout, Cin, K) = flax kernel (K, Cin, Cout) transposed.
+    (Cout, Cin, K) = flax kernel (K, Cin, Cout) transposed. Computes in
+    ``compute_dtype``.
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 1,
-                 padding: str = "SAME"):
+                 padding: str = "SAME", compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
+        self.compute_dtype = compute_dtype
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_ch))
         self.reset_parameters()
@@ -65,7 +92,10 @@ class Conv1d(nn.Module):
             out_len = -(-L // s)
             pad_total = max((out_len - 1) * s + K - L, 0)
             x = F.pad(x, (pad_total // 2, pad_total - pad_total // 2))
-        return F.conv1d(x, self.weight, self.bias, stride=self.stride)
+        x, w, b = _cast(self.compute_dtype, x, self.weight, self.bias)
+        if b.dtype == torch.float32:
+            return F.conv1d(x, w, b, stride=self.stride)
+        return F.conv1d(x, w, stride=self.stride) + b[:, None]
 
 
 class PallasConv1d(Conv1d):
@@ -74,24 +104,29 @@ class PallasConv1d(Conv1d):
     at the layer's stride, which the kernel computes natively. Its
     parameters are :class:`Conv1d`'s (weight (Cout, Cin, K), bias), so
     converted weights and saved ``state_dict``s work under either
-    implementation. Linear output, as with :class:`Conv1d`."""
+    implementation. Linear float32 output: the input is cast to float32, so
+    the kernel runs float32 whatever the model's compute dtype (the JAX
+    module's ``jnp.asarray(x, jnp.float32)``), and bf16 never reaches
+    cuDNN."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 1):
         super().__init__(in_ch, out_ch, kernel_size, stride, padding="SAME")
 
     def forward(self, x):
-        return conv1d_ops.conv1d_train(x, self.weight, self.bias, self.stride)
+        return conv1d_ops.conv1d_train(x.float(), self.weight, self.bias, self.stride)
 
 
-def conv1d_layer(impl: str, in_ch: int, out_ch: int, kernel_size: int = 5,
-                 stride: int = 1) -> Conv1d:
+def conv1d_layer(impl: str, in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 1,
+                 compute_dtype: torch.dtype = torch.float32) -> Conv1d:
     """The conv implementation of the models' hot layers: ``"xla"`` →
-    :class:`Conv1d` (cuDNN), ``"pallas"`` → :class:`PallasConv1d` (the
-    port's kernel). The names are the JAX package's ``conv_impl`` values."""
+    :class:`Conv1d` (cuDNN) in ``compute_dtype``, ``"pallas"`` →
+    :class:`PallasConv1d` (the port's kernel, float32 whatever
+    ``compute_dtype`` is). The names are the JAX package's ``conv_impl``
+    values."""
     if impl == "pallas":
         return PallasConv1d(in_ch, out_ch, kernel_size, stride)
     if impl == "xla":
-        return Conv1d(in_ch, out_ch, kernel_size, stride)
+        return Conv1d(in_ch, out_ch, kernel_size, stride, compute_dtype=compute_dtype)
     raise ValueError(f"conv_impl must be 'xla' or 'pallas', got {impl!r}")
 
 
@@ -105,12 +140,14 @@ class BatchNorm(nn.Module):
       when the caller asks (``commit=True``): a forward pass in batch mode
       can be run without advancing the state, as the GAN's D step needs.
     - In running-average mode it normalises with the stored statistics.
+    - It reduces and normalises in float32 and returns ``compute_dtype``.
     """
 
     def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-5,
-                 channel_dim: int = 1):
+                 channel_dim: int = 1, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.momentum, self.eps, self.channel_dim = momentum, eps, channel_dim
+        self.compute_dtype = compute_dtype
         self.weight = nn.Parameter(torch.ones(features))   # flax "scale"
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -123,6 +160,7 @@ class BatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x, batch_stats: bool, commit: bool = False):
+        x = x.float()
         shape = [1] * x.ndim
         shape[self.channel_dim] = -1
         if batch_stats:
@@ -136,7 +174,8 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        y = (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(self.compute_dtype)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -144,19 +183,21 @@ class GroupNorm(nn.GroupNorm):
     channels (``channel_dim`` 1), epsilon 1e-6, scale and bias per channel
     (flax "scale" → ``weight``). Batch-independent, so it has no running
     statistics; :class:`BatchNorm`'s mode arguments are accepted and
-    change nothing."""
+    change nothing. Computes in float32, returns ``compute_dtype``."""
 
-    def __init__(self, features: int, group_size: int = 16, eps: float = 1e-6):
+    def __init__(self, features: int, group_size: int = 16, eps: float = 1e-6,
+                 compute_dtype: torch.dtype = torch.float32):
         if features % group_size:
             raise ValueError(f"{features} channels do not split into groups of {group_size}")
         super().__init__(features // group_size, features, eps=eps)
+        self.compute_dtype = compute_dtype
 
     def reset_parameters(self, gen: torch.Generator | None = None):
         nn.init.ones_(self.weight)
         nn.init.zeros_(self.bias)
 
     def forward(self, x, batch_stats: bool = False, commit: bool = False):
-        return super().forward(x)
+        return super().forward(x.float()).to(self.compute_dtype)
 
 
 class NoNorm(nn.Module):
@@ -167,13 +208,14 @@ class NoNorm(nn.Module):
         return x
 
 
-def norm_layer(kind: str, features: int, momentum: float) -> nn.Module:
+def norm_layer(kind: str, features: int, momentum: float,
+               compute_dtype: torch.dtype = torch.float32) -> nn.Module:
     """The generator's normalisation: ``"batch"`` (:class:`BatchNorm`),
     ``"group"`` (:class:`GroupNorm`) or ``"none"``."""
     if kind == "batch":
-        return BatchNorm(features, momentum)
+        return BatchNorm(features, momentum, compute_dtype=compute_dtype)
     if kind == "group":
-        return GroupNorm(features)
+        return GroupNorm(features, compute_dtype=compute_dtype)
     if kind == "none":
         return NoNorm()
     raise ValueError(f"norm must be 'batch', 'group' or 'none', got {kind!r}")
@@ -197,14 +239,15 @@ class PReLU(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float, active: bool, gen: torch.Generator | None):
-    """flax ``nn.Dropout``: keep with probability 1 − rate and rescale. The
-    mask comes from ``gen`` (which must live on x's device), so a seed
-    reproduces the draw."""
+    """flax ``nn.Dropout``: keep with probability 1 − rate and rescale, in
+    x's dtype. The mask comes from ``gen`` (which must live on x's device)
+    as float32 uniforms whatever x's dtype, as flax's does, so a seed
+    reproduces the draw at every compute dtype."""
     if not active or rate == 0.0:
         return x
     if gen is None:
         raise ValueError("dropout is active but no torch.Generator was given")
-    keep = torch.rand(x.shape, generator=gen, device=x.device, dtype=x.dtype) >= rate
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -1,19 +1,24 @@
 """Metrics logging: reference-style status lines, a jsonl history whose
 schema matches ``gennet_tpu.train.metrics`` (one ``{metric: float, "step":
-int}`` object per line), and a steps/sec meter."""
+int}`` object per line), the same history in memory for the plots, and a
+steps/sec meter."""
 
 import json
 import os
 import time
+from collections import defaultdict
 
+import numpy as np
 import torch
 
 
 class MetricLogger:
-    """Persists per-step metric dicts to ``<out_dir>/<name>_metrics.jsonl``;
-    computes steps/sec."""
+    """Persists per-step metric dicts to ``<out_dir>/<name>_metrics.jsonl``
+    and keeps them as ``history`` (metric → list of values, ``"step"``
+    included); computes steps/sec."""
 
     def __init__(self, out_dir: str | None = None, name: str = "train"):
+        self.history = defaultdict(list)
         self._last = time.perf_counter()
         self._last_step = 0
         self._fh = None
@@ -24,6 +29,8 @@ class MetricLogger:
     def log(self, step: int, metrics: dict):
         row = {k: float(v) for k, v in metrics.items()}
         row["step"] = step
+        for k, v in row.items():
+            self.history[k].append(v)
         if self._fh:
             self._fh.write(json.dumps(row) + "\n")
             self._fh.flush()
@@ -50,6 +57,10 @@ class MetricLogger:
         if sps is not None:
             parts.append(f"[{sps:.1f} steps/s]")
         return "  ".join(parts)
+
+    def arrays(self) -> dict:
+        """``history`` as a dict of numpy arrays (what the plots read)."""
+        return {k: np.asarray(v) for k, v in self.history.items()}
 
     def close(self):
         if self._fh:

@@ -6,13 +6,18 @@
     draws → CNN predict → β against a fixed reference cloud. Each
     intermediate is compared; the final β to 1e-3 absolute.
 (b) The port's own ``run_bbh`` on the CPU with the counts of
-    tests/test_workloads.py::test_bbh_workload_tiny.
-(c) Options the port does not implement raise, and so do values the
-    reference refuses. The options this port implements beyond the default
-    recipe are driven in tests/test_torch_workload_routes.py, (the
-    residual-route family) tests/test_torch_workload_burst.py and (resume,
-    the CNN cache, bank files, lalinference products, ``comb_pe_model``,
-    ``g_norm``) tests/test_torch_workload_staged.py.
+    tests/test_workloads.py::test_bbh_workload_tiny; and, in both packages
+    at narrow widths, a run whose raw posterior cloud is constant with a
+    post-processing route on: both write the same jsonl rows (steps and
+    keys), with no ``beta_raw`` row.
+(c) What the port refuses: ``plots=True`` without matplotlib, a bank too
+    small for the PE-accuracy plot's draw, and the values the reference
+    refuses. The options beyond the default recipe are driven in
+    tests/test_torch_workload_routes.py, (the residual-route family)
+    tests/test_torch_workload_burst.py, (resume, the CNN cache, bank files,
+    lalinference products, ``comb_pe_model``, ``g_norm``)
+    tests/test_torch_workload_staged.py, (plots) tests/test_torch_plots.py
+    and (``bf16``) tests/test_torch_bf16.py.
 
 Tolerances as in the per-module tests: templates 1e-4·max (the event 3e-4,
 see tests/test_torch_bank.py), forward values 1e-4·max, losses rtol 1e-4,
@@ -20,8 +25,11 @@ weights after one Adam step within lr.
 """
 
 import dataclasses
+import json
+import sys
 from functools import partial
 
+import gennet_tpu.models
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +41,7 @@ from gennet_tpu.cli import workloads as jwl
 from gennet_tpu.data import template_bank as jtb
 from gennet_tpu.eval import overlap as jov
 from gennet_tpu.models import BBHGenerator as JG
+from gennet_tpu.models import CombinedPE as JCPE
 from gennet_tpu.models import DualBranchPE as JPE
 from gennet_tpu.models import PairDiscriminator as JD
 from gennet_tpu.physics import psd as jpsd
@@ -42,7 +51,7 @@ from gennet_tpu_torch import convert
 from gennet_tpu_torch.cli import workloads as twl
 from gennet_tpu_torch.data import template_bank as ttb
 from gennet_tpu_torch.eval import overlap as tov
-from gennet_tpu_torch.models import BBHGenerator, DualBranchPE, PairDiscriminator
+from gennet_tpu_torch.models import BBHGenerator, CombinedPE, DualBranchPE, PairDiscriminator
 from gennet_tpu_torch.physics import psd as tpsd
 from gennet_tpu_torch.train import cnn as tcnn
 from gennet_tpu_torch.train import gan as tgan
@@ -175,12 +184,55 @@ def test_port_run_bbh_tiny(tmp_path):
     assert len(snaps) == 3 and np.load(snaps[-1])["samples"].shape == (8, 2)
 
 
-@pytest.mark.parametrize("field,value", [("bf16", True), ("plots", True)])
-def test_unported_options_raise(tmp_path, field, value):
-    cfg = twl.BBHConfig(plots=False, out_dir=str(tmp_path / "x"))
-    with pytest.raises(NotImplementedError, match=field):
-        twl.run_bbh(dataclasses.replace(cfg, **{field: value}), device="cpu")
-    assert not (tmp_path / "x").exists()  # refused before any work
+def test_constant_raw_cloud_logs_the_reference_rows(tmp_path, monkeypatch):
+    # eval_posterior logs beta_raw inside the raw cloud's variance guard, as
+    # the reference does (workloads.py:1531-1536): a constant CNN makes the
+    # raw cloud constant, and likelihood resampling is the route
+    pe_feat = (8, 8, 16, 16)
+    monkeypatch.setattr(jwl, "BBHGenerator", partial(JG, features=G_FEAT))
+    monkeypatch.setattr(jwl, "PairDiscriminator", partial(JD, features=D_FEAT))
+    monkeypatch.setattr(gennet_tpu.models, "CombinedPE", partial(JCPE, features=pe_feat))
+    monkeypatch.setattr(twl, "BBHGenerator", partial(BBHGenerator, features=G_FEAT))
+    monkeypatch.setattr(twl, "PairDiscriminator", partial(PairDiscriminator, features=D_FEAT))
+    monkeypatch.setattr(twl, "CombinedPE", partial(CombinedPE, features=pe_feat))
+    point = np.array([[28.0, 0.8]], np.float32)
+    monkeypatch.setattr(jwl, "cnn_predict",
+                        lambda model, state, x, **k: jnp.tile(point, (x.shape[0], 1)))
+    monkeypatch.setattr(twl, "cnn_predict",
+                        lambda state, x, **k: torch.tensor(point).expand(x.shape[0], 2))
+    kw = dict(n_pix=256, training_num=24, pe_iters=1, gan_iters=2, cadence=2, pe_cadence=10,
+              eval_cadence=2, n_posterior=8, grid_grain=5, ckpt_every=10_000,
+              reweight_temper=1.0, comb_pe_model=True, plots=False)
+    jwl.run_bbh(jwl.BBHConfig(**kw, out_dir=str(tmp_path / "j")))
+    twl.run_bbh(twl.BBHConfig(**kw, out_dir=str(tmp_path / "t")), device="cpu")
+    rows = {}
+    for tag in ("j", "t"):
+        with open(tmp_path / tag / "bbh_metrics.jsonl") as f:
+            rows[tag] = [(r["step"], sorted(r)) for r in map(json.loads, f)]
+    assert rows["t"] == rows["j"]
+    assert all(len(keys) > 1 for _, keys in rows["t"])  # no bare {"step": N} row
+    assert not any("beta_raw" in keys for _, keys in rows["t"])
+
+
+@pytest.mark.parametrize("field,value", [("plots", True), ("training_num", 24)])
+def test_unported_options_raise(tmp_path, monkeypatch, field, value):
+    # plots=True without matplotlib is refused before any work; plots=True
+    # with a bank under the PE-accuracy draw's 4000 rows before PE training
+    # (the reference fails there with numpy's error: tests/test_torch_plots.py)
+    cfg = twl.BBHConfig(n_pix=256, training_num=4001, pe_iters=2, pe_cadence=1, gan_iters=0,
+                        grid_grain=0, out_dir=str(tmp_path / "x"))
+    if field == "plots":
+        monkeypatch.setitem(sys.modules, "matplotlib", None)
+        with pytest.raises(ImportError, match="matplotlib"):
+            twl.run_bbh(dataclasses.replace(cfg, plots=value), device="cpu")
+        assert not (tmp_path / "x").exists()
+    else:
+        def no_training(*a, **k):
+            raise AssertionError("PE training began")
+
+        monkeypatch.setattr(twl, "cnn_step", no_training)
+        with pytest.raises(ValueError, match="4000 bank rows without replacement"):
+            twl.run_bbh(dataclasses.replace(cfg, **{field: value}), device="cpu")
 
 
 @pytest.mark.parametrize("field,value", [

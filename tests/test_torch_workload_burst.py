@@ -6,8 +6,9 @@ whole runs of the port on the CPU.
   default recipe, the bootstrap sampler with the terminal anneal, and the
   ELBO library selection; the early stop after a random restart, which
   clears the abandoned attempt's posterior clouds from disk.
-- The reference's ValueErrors, the unported option (plots), ``BurstSmokeConfig``'s
-  fields and defaults, and the ``smoke`` CLI's refusals.
+- The reference's ValueErrors, ``plots=True`` without matplotlib,
+  ``BurstSmokeConfig``'s fields and defaults, and the ``smoke`` CLI's
+  refusals.
 - Tiny ``run_bbh`` runs with the residual-route options under
   ``conv_impl`` xla and pallas (the conv op's plain version on the CPU),
   with the early stop firing and holding.
@@ -21,6 +22,7 @@ JAX is imported inside the one comparison that needs it, so on the card
 
 import dataclasses
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -120,10 +122,12 @@ def test_burst_smoke_refuses_what_the_reference_refuses(tmp_path, field, value):
 
 
 @pytest.mark.parametrize("field,value", [("plots", True)])
-def test_burst_smoke_unported_options_raise(tmp_path, field, value):
-    # the CNN cache is ported: tests/test_torch_workload_staged.py
+def test_burst_smoke_unported_options_raise(tmp_path, monkeypatch, field, value):
+    # plots are ported (tests/test_torch_plots.py), but refused before any
+    # work where matplotlib cannot be imported
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     cfg = dataclasses.replace(_tiny_burst(tmp_path), **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
+    with pytest.raises(ImportError, match="matplotlib"):
         twl.run_burst_smoke(cfg, device="cpu")
     assert not (tmp_path / "burst").exists()
 

@@ -369,8 +369,9 @@ def test_lalinf_dir_branch_of_run_bbh(tmp_path, products):
     d, prod = products
     cfg = _cfg(tmp_path, lalinf_dir=d, pe_iters=2, gan_iters=2, eval_cadence=100,
                pe_cadence=100)
-    _, _, signal, measured, norm, psd, post = twl._prepare_bbh_data(
+    _, _, signal, measured, norm, psd, truth, post = twl._prepare_bbh_data(
         cfg, torch.Generator().manual_seed(0), "cpu")
+    assert truth == (30.0, 0.79)  # the event paper's point, as in the reference
     np.testing.assert_array_equal(measured.numpy(), prod["measured_whitened"])
     np.testing.assert_array_equal(signal.numpy(), prod["signal_whitened"])
     assert norm == prod["norm_constant"] and psd.shape == (513,)
