@@ -61,7 +61,22 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    whether matplotlib imports here, then either a short ``train-bbh`` and
    ``smoke`` with plots on (their png names checked) or ``train-bbh`` with
    default flags refused before any work with an error naming matplotlib;
-12. throughput (information): bank templates/s, PE steps/s, GAN steps/s
+12. slice 7, data parallelism: ``make-bank --data-parallel`` of 50,000
+   templates at world 1 over NCCL (one synthesis at B = 50,000: exactly 3
+   phasor launches; the file reopened with its checksum verified, finite,
+   in the prior's box; the kernel against its plain version at B = 50,000
+   in passes A and B, on prior draws); ``train-bbh --data-parallel
+   --conv-impl pallas --bank-file`` on it at world 1 against the same
+   command without the flag (20 PE and 20 GAN steps and the final eval:
+   bitwise-equal PE and GAN checkpoints, metric rows and summary, 580 conv
+   launches each); a world of 2 over gloo with both ranks on this card,
+   started with ``torch.multiprocessing`` (10 GAN steps under pallas at
+   full width: G's output after the broadcast equal on both ranks, so no
+   stale weight pack; exact checksums of weights, BN statistics and Adam
+   states equal after every step; finite losses; 25 conv launches a step
+   and no phasor launch per rank); and ``make-mdc -n 100`` (the XML read
+   back, 200 ASCII files);
+13. throughput (information): bank templates/s, PE steps/s, GAN steps/s
    with ``conv_impl`` xla and pallas in turns, each kernel's launches per
    GAN step and per synthesis, the burst PE and GAN steps/s, and (slice 6)
    GAN steps/s and the wall time of a 4000-draw posterior, bf16 against
@@ -569,6 +584,283 @@ def slice6_plots(cli_main, build, card) -> str:
     return "plots written"
 
 
+def _bits_sum(tensors):
+    """An exact checksum of float32 tensors: the sum of their bit patterns
+    as int64, on the host."""
+    import torch
+
+    return int(torch.stack([t.detach().reshape(-1).view(torch.int32).to(torch.int64).sum()
+                            for t in tensors]).sum().cpu())
+
+
+def _world2_rank(rank, store, n_pix, steps, queue):
+    """One rank of slice 7's world of 2 over gloo on card 0: the default
+    recipe's GAN under ``--conv-impl pallas`` at full width, ``steps`` data-
+    parallel steps; puts (rank, "ok", result) or (rank, "error", text)."""
+    import traceback
+    from datetime import timedelta
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from gennet_tpu_torch import runtime
+        from gennet_tpu_torch.models import BBHGenerator, PairDiscriminator
+        from gennet_tpu_torch.ops import conv1d as CV
+        from gennet_tpu_torch.ops import phasor_dft as P
+        from gennet_tpu_torch.train import gan as tgan
+        from gennet_tpu_torch.train.mesh import init_data_mesh, rank_generator
+
+        runtime.setup("cuda")
+        mesh = init_data_mesh("cuda:0", backend="gloo", world=2, rank=rank,
+                              init_method=f"file://{store}", timeout=timedelta(seconds=300))
+        try:
+            dev = mesh.device
+            cfg = tgan.GANConfig(n_pix=n_pix, label_smoothing=True, d_instance_noise=0.3,
+                                 d_lr_scale=0.5, d_acc_gate=0.9)
+            G = BBHGenerator(n_out=n_pix, conv_impl="pallas")
+            D = PairDiscriminator(n_pix=n_pix, conv_impl="pallas")
+            # each rank starts from its own weights and packs them (a forward
+            # fills the conv kernel's weight-pack cache); the broadcast must
+            # renew the packs, or rank 1 would compute with its old weights
+            state = tgan.init_gan(torch.Generator().manual_seed(2 + rank), G, D, cfg, dev)
+            z = 2 * torch.rand((8, cfg.latent_dim), generator=torch.Generator(device=dev)
+                               .manual_seed(5), device=dev) - 1
+            with torch.no_grad():
+                G(z)
+            mesh.broadcast_modules_(G, D)
+            with torch.no_grad():
+                fwd = _bits_sum([G(z)])
+            gen = rank_generator(0, rank, dev)
+            bank = mesh.shard_rows(torch.randn((128, n_pix), generator=torch.Generator(
+                device=dev).manual_seed(1), device=dev))
+            measured = torch.randn(n_pix, generator=torch.Generator(device=dev).manual_seed(3),
+                                   device=dev)
+
+            def digest():
+                opt = [v for o in (state.g_opt, state.d_opt, state.g_res_opt)
+                       for st in o.state.values() for _, v in sorted(st.items())]
+                bufs = [b for m in (G, D) for b in m.buffers() if b.is_floating_point()]
+                return _bits_sum(list(G.parameters()) + list(D.parameters()) + bufs
+                                 + [t.to(dev) for t in opt])
+
+            torch.cuda.synchronize()
+            P.LAUNCHES = CV.LAUNCHES = 0
+            t0 = time.perf_counter()
+            sums, losses = [], []
+            for _ in range(steps):
+                state, m = tgan.gan_step(state, bank, measured, gen, cfg=cfg, mesh=mesh)
+                mine = torch.tensor([digest()], dtype=torch.int64)  # a host tensor
+                both = [torch.zeros_like(mine) for _ in range(2)]
+                dist.all_gather(both, mine)
+                sums.append([int(b) for b in both])
+                losses.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            queue.put((rank, "ok", {"fwd": mesh.gather_objects(fwd), "sums": sums,
+                                    "losses": losses, "launches": (P.LAUNCHES, CV.LAUNCHES),
+                                    "seconds": time.perf_counter() - t0}))
+        finally:
+            mesh.close()
+    except BaseException as e:  # the parent fails the run with this text
+        queue.put((rank, "error", f"{type(e).__name__}: {e}\n{traceback.format_exc()}"))
+
+
+def phasor_at_bank_size(n, P, card) -> float:
+    """The phasor kernel against its plain version at the shapes that
+    ``make-bank --data-parallel`` gives it (one synthesis of ``n`` rows):
+    pass A in phase and in quadrature, the peak index, and pass B, on ``n``
+    prior draws placed as ``_synthesize`` places them, with passes A and
+    B's tolerances. Returns the largest abs error."""
+    import numpy as np
+    import torch
+
+    from gennet_tpu_torch.data import template_bank as tb
+    from gennet_tpu_torch.physics import priors, psd as psd_mod
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    cfg = tb.BankConfig()
+    psd = psd_mod.analytic_advligo_psd(cfg.fs, cfg.T_obs * cfg.safe, device=dev)
+    masses = priors.sample_masses(g, n, mdist=cfg.mdist)
+    amp, phase, freqs = tb.whitened_ampphase(masses["m1"], masses["m2"], psd, cfg)
+    N = cfg.n_safe
+    a_start, a_width = tb.pass_a_slice(cfg)
+    Ca, Sa = P.slice_tables(N, a_start, a_width, None, dev)
+    h_k, h_p, err_a, _ = compare(f"pass A B={n}", amp, phase, Ca, Sa, P)
+    q_k, q_p, err_q, _ = compare(f"pass A quadrature B={n}", amp,
+                                 (phase + 0.5 * np.pi).contiguous(), Ca, Sa, P)
+    peak_k = torch.argmax(h_k * h_k + q_k * q_k, dim=-1)
+    peak_p = torch.argmax(h_p * h_p + q_p * q_p, dim=-1)
+    moved = float((peak_k != peak_p).float().mean())
+    if not moved <= PEAK_TOL:
+        fail(f"pass A B={n}: the peak index moved on {moved:.5f} of the rows (> {PEAK_TOL:.5f})")
+    idx = torch.randint(*cfg.beta_index_bounds(), (n,), generator=g, device=dev)
+    shift = idx.to(torch.int32) + cfg.calibration_offset - (peak_p.to(torch.int32) - a_width // 2)
+    phase_b = (phase + 2.0 * np.pi * freqs * (shift.to(torch.float32) / cfg.fs)[:, None])
+    b_start, b_width, b_weights = tb.pass_b_slice(cfg)
+    Cb, Sb = P.slice_tables(N, b_start, b_width, b_weights, dev)
+    _, _, err_b, _ = compare(f"pass B B={n}", amp, phase_b.contiguous(), Cb, Sb, P)
+    print(f"slice 7: the phasor kernel at the sharded bank's B = {n}: pass A peak index moved "
+          f"on {moved:.5f} of the rows (limit {PEAK_TOL:.5f}) [{card}]")
+    return max(err_a, err_q, err_b)
+
+
+def slice7(cli_main, P, CV, build, card, make_bank_5_s) -> tuple:
+    """Data parallelism (slice 7): ``make-bank --data-parallel`` of 50,000
+    templates at world 1 over NCCL; ``train-bbh --data-parallel --conv-impl
+    pallas --bank-file`` on that bank at world 1 against the same command
+    without the flag (bitwise-equal final states and metric rows, equal
+    conv launches); a world of 2 over gloo with both ranks on this card (10
+    GAN steps under pallas, states bitwise in sync after every step, 25
+    conv launches a step on each rank); and ``make-mdc -n 100``. The
+    phasor kernel is held against its plain version at the bank's B =
+    50,000. Returns ({phase: (phasor, conv) launches}, the largest abs
+    error of the kernel at that B)."""
+    import multiprocessing as mp
+
+    import numpy as np
+    import torch
+
+    from gennet_tpu_torch.data import bankstore
+    from gennet_tpu_torch.data import mdc_xml
+
+    n_bank, n_pix = 50_000, 1024
+    launches = {}
+
+    def stage(name, argv):
+        P.LAUNCHES = CV.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = (P.LAUNCHES, CV.LAUNCHES)
+        print(f"slice 7: {name} finished in {wall:.1f} s; kernel launches phasor "
+              f"{launches[name][0]}, conv {launches[name][1]} [{card}]")
+        return out, wall
+
+    with tempfile.TemporaryDirectory(dir=build) as work:
+        bank = os.path.join(work, "bank_dp.gntb")
+        _, bank_s = stage("make-bank --data-parallel",
+                          ["make-bank", "--device", "cuda", "-N", str(n_bank), "-f", str(n_pix),
+                           "-b", bank, "--data-parallel"])
+        # the reference's sharded bank: one make_template_batch of
+        # n_total // world rows (the kernel at B = 50,000), no event twin
+        if launches["make-bank --data-parallel"] != (3, 0):
+            fail(f"slice 7: make-bank --data-parallel launched (phasor, conv) "
+                 f"{launches['make-bank --data-parallel']}; expected (3, 0): one synthesis")
+        with bankstore.BankStore(bank, verify=True) as store:
+            shape = (store.n, store.n_pix)
+            templates, params = np.array(store.templates), np.array(store.params)
+        mc, q = params[:, 0], params[:, 1]
+        eps = 1e-4
+        if shape != (n_bank, n_pix) or not np.isfinite(templates).all():
+            fail(f"slice 7: the sharded bank file holds {shape}, finite "
+                 f"{bool(np.isfinite(templates).all())}")
+        if not (mc.min() >= 20 - eps and mc.max() <= 35 + eps and q.min() >= 0.5 - eps
+                and q.max() <= 1.0):
+            fail(f"slice 7: (mc, q) outside the hunt_constrain box: mc [{mc.min()}, "
+                 f"{mc.max()}], q [{q.min()}, {q.max()}]")
+        del templates, params
+        bank_err = phasor_at_bank_size(n_bank, P, card)
+        print(f"slice 7: make-bank --data-parallel wrote {n_bank} finite templates in the prior's "
+              f"box from one synthesis at B = {n_bank} in {bank_s:.1f} s (slice 5's make-bank, "
+              f"13 batches of 4096 and the twin: {make_bank_5_s:.1f} s) [{card}]")
+
+        runs, walls = {}, {}
+        torch.backends.cudnn.deterministic = True  # the PE's cuDNN backward, bitwise repeatable
+        try:
+            for tag, extra in (("plain", []), ("data-parallel", ["--data-parallel"])):
+                out_dir = os.path.join(work, tag)
+                out, walls[tag] = stage(
+                    f"train-bbh {tag}",
+                    ["train-bbh", "--device", "cuda", "--n-pix", str(n_pix), "--bank-file", bank,
+                     "--conv-impl", "pallas", "--pe-iters", "20", "--gan-iters", "20",
+                     "--cadence", "10", "--pe-cadence", "10", "--eval-cadence", "100000",
+                     "--ckpt-every", "100000", "--plots", "false", "--out-dir", out_dir, *extra])
+                payloads = [torch.load(os.path.join(out_dir, ph, "ckpt_20.pt"), map_location="cpu",
+                                       weights_only=True) for ph in ("ckpt_pe", "ckpt_gan")]
+                with open(os.path.join(out_dir, "bbh_metrics.jsonl")) as f:
+                    runs[tag] = (out, payloads, f.read())
+        finally:
+            torch.backends.cudnn.deterministic = False
+        (o_a, p_a, r_a), (o_b, p_b, r_b) = runs["plain"], runs["data-parallel"]
+        diff = same_tree(p_a, p_b)
+        if diff or r_a != r_b or json.dumps(o_a) != json.dumps(o_b):
+            fail(f"slice 7: train-bbh --data-parallel at world 1 differs from the plain run: "
+                 f"checkpoints at {diff[:5]}, metric rows equal {r_a == r_b}, summaries "
+                 f"{o_a} vs {o_b}")
+        expect = 20 * 25 + 80  # 25 conv launches a GAN step, 80 for the 4000-draw eval
+        conv = (launches["train-bbh plain"][1], launches["train-bbh data-parallel"][1])
+        if conv != (expect, expect):
+            fail(f"slice 7: train-bbh conv launches (plain, data-parallel) {conv}; "
+                 f"expected {expect} each")
+        print(f"slice 7: train-bbh --data-parallel at world 1 (NCCL) equals the plain run bit "
+              f"for bit (PE and GAN checkpoints, {len(r_a.splitlines())} metric rows, the "
+              f"summary); wall {walls['plain']:.1f} s plain, {walls['data-parallel']:.1f} s "
+              f"data-parallel; conv launches {conv[0]} each [{card}]")
+
+        # ---- a world of 2 over gloo, both ranks on this card ----------------
+        steps = 10
+        ctx = mp.get_context("spawn")
+        queue = ctx.Queue()
+        store = os.path.join(work, "store")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_world2_rank, args=(r, store, n_pix, steps, queue))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        got, errors = {}, []
+        try:
+            for _ in procs:
+                rank, status, value = queue.get(timeout=400)
+                (got.__setitem__(rank, value) if status == "ok" else errors.append(value))
+        except Exception as e:  # queue.Empty: a rank hung or died
+            errors.append(f"no answer from every rank ({e!r})")
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=30)
+        w2_s = time.perf_counter() - t0
+        if errors:
+            fail("slice 7 world 2: " + "\n".join(errors))
+        r0, r1 = got[0], got[1]
+        if len(set(r0["fwd"])) != 1:
+            fail(f"slice 7 world 2: G's outputs after the broadcast differ across ranks "
+                 f"({r0['fwd']}): a stale weight pack")
+        for i, pair in enumerate(r0["sums"]):
+            if pair[0] != pair[1] or r1["sums"][i] != pair:
+                fail(f"slice 7 world 2: the ranks' states differ after step {i + 1}: {pair}")
+        bad = [(r, i, k) for r, res in got.items() for i, m in enumerate(res["losses"])
+               for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"slice 7 world 2: non-finite losses {bad[:5]}")
+        per = (r0["launches"], r1["launches"])
+        if per != ((0, 25 * steps), (0, 25 * steps)):
+            fail(f"slice 7 world 2: (phasor, conv) launches per rank {per}; expected "
+                 f"(0, {25 * steps}) each: GAN steps synthesize nothing")
+        launches["world 2 gloo (rank 0)"] = r0["launches"]
+        print(f"slice 7: a world of 2 over gloo on one card (a check of the reductions, not a "
+              f"rate): {steps} GAN steps under pallas, states bitwise equal after every step, "
+              f"G's output after the broadcast equal on both ranks, (phasor, conv) launches "
+              f"per rank {per}; "
+              f"{w2_s:.1f} s with both ranks' start, steps {r0['seconds']:.1f} s [{card}]")
+
+        # ---- make-mdc ---------------------------------------------------------
+        xml, render = os.path.join(work, "mdc", "set.xml.gz"), os.path.join(work, "mdc", "txt")
+        out, mdc_s = stage("make-mdc", ["make-mdc", "-n", "100", "--xml", xml,
+                                        "--render-dir", render])
+        n_inj = len(mdc_xml.MDCSet.load_xml(xml).injections)
+        n_files = len(os.listdir(render))
+        if n_inj != 100 or n_files != 200 or out.get("files") != 200:
+            fail(f"slice 7: make-mdc wrote {n_inj} injections and {n_files} files; expected "
+                 f"100 and 200 (two detectors)")
+        print(f"slice 7: make-mdc -n 100 wrote the sim_burst XML (100 injections read back) "
+              f"and 200 ASCII files in {mdc_s:.1f} s")
+    return launches, bank_err
+
+
 def bf16_against_f32(pe, bank, measured, g, dev, card) -> dict:
     """GAN steps/s (default recipe, batch 8) and the wall time of a
     4000-draw posterior (G's draws in chunks of 256 through the PE), bf16
@@ -1018,7 +1310,7 @@ def main():
     print("slice 4 summary: " + json.dumps(out4))
 
     # ---- 10. slice 5: the staged pipeline through the CLI -------------------
-    launches_5, _ = slice5(cli_main, P, CV, build, card)
+    launches_5, stage_s_5 = slice5(cli_main, P, CV, build, card)
 
     # ---- 11. slice 6: --bf16, --lalinf-dir on the port's products, plots ---
     launches_6 = {f"bf16 {k}": v for k, v in slice6_bf16(cli_main, P, CV, build, card,
@@ -1029,7 +1321,13 @@ def main():
     print(f"slice 6: plots branch that ran: {plots_branch}")
     print("slice 6 launches (phasor, conv): " + json.dumps(launches_6))
 
-    # ---- 12. throughput (information, warm, same process) -------------------
+    # ---- 12. slice 7: data parallelism and make-mdc --------------------------
+    t0 = time.perf_counter()
+    launches_7, err_7 = slice7(cli_main, P, CV, build, card, stage_s_5["make-bank"])
+    print(f"slice 7 finished in {time.perf_counter() - t0:.1f} s; launches (phasor, conv): "
+          + json.dumps(launches_7))
+
+    # ---- 13. throughput (information, warm, same process) -------------------
     from gennet_tpu_torch.models import BBHGenerator, DualBranchPE, PairDiscriminator
     from gennet_tpu_torch.train import cnn as tcnn
     from gennet_tpu_torch.train import gan as tgan
@@ -1113,10 +1411,13 @@ def main():
         return {"shape": " ".join(map(str, shape)) if isinstance(shape, tuple) else shape,
                 "ms": k, "plain_ms": p, "ratio": k / p}
 
-    # launches: slice 6, this slice's path, which runs both kernels (every
-    # path's count under launches_by_path); times and bounds: pass B and
-    # G Conv_4's forward at batch 8, the largest call of each on the train path
+    # launches: slice 7's data-parallel path at world 1 (make-bank and
+    # train-bbh --data-parallel, which run both kernels; every path's count
+    # under launches_by_path); times and bounds: pass B and G Conv_4's
+    # forward at batch 8, the largest call of each on the train path
     print("slice 6 bf16 vs float32 summary: " + json.dumps(bf16_res))
+    dp_launches = [sum(launches_7[k][i] for k in ("make-bank --data-parallel",
+                                                   "train-bbh data-parallel")) for i in (0, 1)]
     k_ms, p_ms = times["pass B"]
     ck_ms, cp_ms = conv_times[("G Conv_4", "fwd", 8)]
     (pb_ms, pb_by), (cb_ms, cb_by) = bounds["pass B"], conv_bounds[("G Conv_4", "fwd", 8)]
@@ -1124,26 +1425,28 @@ def main():
         "name": "phasor_irdft_f32", "route": "cuda",
         "source": "gennet_tpu_torch/csrc/phasor_irdft.cu",
         "replaces": "gennet_tpu/ops/phasor_dft.py:25",
-        "launches": sum(v[0] for v in launches_6.values()), "max_abs_err": max(err_a, err_b),
+        "launches": dp_launches[0], "max_abs_err": max(err_a, err_b, err_7),
         "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": lib_ms["pass B"],
         "ms_worst_ratio": worst(times),
         "launches_by_path": {"slice 1": launches, "slice 2": phasor_launches,
                              "slice 3": phasor_launches_3, "slice 4": launches_4[0],
                              "slice 5": launches_5["phasor"],
-                             **{f"slice 6 {k}": v[0] for k, v in launches_6.items()}},
+                             **{f"slice 6 {k}": v[0] for k, v in launches_6.items()},
+                             **{f"slice 7 {k}": v[0] for k, v in launches_7.items()}},
     }, {
         "name": "conv1d_same_f32", "route": "cuda",
         "source": "gennet_tpu_torch/csrc/conv1d_same.cu",
         "replaces": "gennet_tpu/ops/pallas_conv1d.py:50",
-        "launches": sum(v[1] for v in launches_6.values()), "max_abs_err": conv_err, "ms": ck_ms,
+        "launches": dp_launches[1], "max_abs_err": conv_err, "ms": ck_ms,
         "plain_ms": cp_ms,
         "bound_ms": cb_ms, "bound_by": cb_by, "library_ms": lib_ms["conv"],
         "ms_worst_ratio": worst(conv_times),
         "launches_by_path": {"slice 1": conv_launches_1, "slice 2": conv_launches,
                              "slice 3": conv_launches_3, "slice 4": launches_4[1],
                              "slice 5": launches_5["conv"],
-                             **{f"slice 6 {k}": v[1] for k, v in launches_6.items()}},
+                             **{f"slice 6 {k}": v[1] for k, v in launches_6.items()},
+                             **{f"slice 7 {k}": v[1] for k, v in launches_7.items()}},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,23 @@
 """gennet-tpu-torch CLI: ``make-bank``, ``train-cnn``, ``train-gan``,
-``train-bbh``, ``sample-posterior`` and ``smoke``.
+``train-bbh``, ``sample-posterior``, ``smoke`` and ``make-mdc``.
 
 The flags are the JAX CLI's: every ``BBHConfig`` / ``BurstSmokeConfig``
 field is a flag (``--pe-iters``, ``--grid-grain``, …), ``make-bank`` takes
-``-N -f -T -m -z -b --beta --lalinf-dir``, and ``sample-posterior`` adds
-``--n-samples`` and ``--out``. The port adds ``--device`` (default
-``cuda``; the run fails rather than fall back when CUDA is unavailable).
-``--data-parallel`` is accepted where the JAX CLI has it and refused when
-given: data parallelism is not ported yet.
+``-N -f -T -m -z -b --beta --lalinf-dir``, ``sample-posterior`` adds
+``--n-samples`` and ``--out``, and ``make-mdc`` (host only) takes the JAX
+CLI's flags. The port adds ``--device`` (default ``cuda``; the run fails
+rather than fall back when CUDA is unavailable).
+
+``--data-parallel`` (``make-bank``, ``train-cnn``, ``train-gan``,
+``train-bbh``, ``smoke``) runs the reference's data parallelism over
+``torch.distributed`` (:mod:`gennet_tpu_torch.train.mesh`): one process
+per card under ``torchrun``,
+
+    torchrun --standalone --nproc_per_node=8 -m gennet_tpu_torch.cli.main train-bbh --data-parallel
+
+or, without torchrun, a world of one process, which equals the run
+without the flag bit for bit (``make-bank`` excepted: the sharded bank is
+one synthesis per rank, with no event twin, as in the reference).
 
 The reference's staged workflow (plots are on by default and need
 matplotlib; ``--plots false`` turns them off):
@@ -43,26 +53,38 @@ def _build_dataclass(args, dc_type):
     return dc_type(**{k: v for k, v in vars(args).items() if k in names})
 
 
-def make_bank(args):
+def make_bank(args, mesh=None):
     """Write a whitened template bank (ref: gennet_tpu/cli/main.py:119-152):
-    ``.gntb`` through the native bank store, anything else as ``.npz``."""
+    ``.gntb`` through the native bank store, anything else as ``.npz``.
+    Under a ``mesh`` the bank is cut to a multiple of the world size and
+    synthesized by :func:`~gennet_tpu_torch.data.template_bank.
+    make_bank_sharded`; rank 0 writes it."""
     import torch
 
     from gennet_tpu_torch.data import lalinf_io
     from gennet_tpu_torch.data import template_bank as tb
     from gennet_tpu_torch.physics import psd as psd_mod
+    from gennet_tpu_torch.train.mesh import rank_generator
 
+    device = args.device if mesh is None else mesh.device
     cfg = tb.BankConfig(fs=args.fsample, T_obs=args.tobs, mdist=args.mdist, beta=tuple(args.beta))
     norm = 1.0
     if args.lalinf_dir:
         prod = lalinf_io.load_event_products(args.lalinf_dir, fs=cfg.fs,
                                              T_safe=cfg.T_obs * cfg.safe)
-        psd = torch.as_tensor(prod["psd"], dtype=torch.float32, device=args.device)
+        psd = torch.as_tensor(prod["psd"], dtype=torch.float32, device=device)
         norm = prod["norm_constant"]
     else:
-        psd = psd_mod.analytic_advligo_psd(cfg.fs, cfg.T_obs * cfg.safe, device=args.device)
-    gen = torch.Generator(device=args.device).manual_seed(args.seed)
-    t, p = tb.make_bank(gen, args.nsamp, psd, cfg, norm)
+        psd = psd_mod.analytic_advligo_psd(cfg.fs, cfg.T_obs * cfg.safe, device=device)
+    if mesh is None:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        t, p = tb.make_bank(gen, args.nsamp, psd, cfg, norm)
+    else:
+        n = args.nsamp - args.nsamp % mesh.world
+        gen = rank_generator(args.seed, mesh.rank, device)
+        t, p = tb.make_bank_sharded(gen, n, psd, mesh, cfg, norm)
+        if not mesh.is_main:
+            return None
     t, p = t.cpu().numpy(), {k: v.cpu().numpy() for k, v in p.items()}
     p["idx"] = p["idx"].astype("int32")  # the JAX bank's index dtype
     os.makedirs(os.path.dirname(args.basename) or ".", exist_ok=True)
@@ -73,6 +95,36 @@ def make_bank(args):
     else:
         lalinf_io.save_bank_npz(args.basename, t, p)
     return {"templates": int(t.shape[0]), "file": args.basename}
+
+
+def make_mdc(args):
+    """A hardware-injection MDC set (ref: gennet_tpu/cli/main.py:187-215):
+    sim_burst XML, and with ``--render-dir`` one ASCII strain file per
+    injection per detector. Host numpy, from ``--seed``: the same files as
+    the JAX CLI's."""
+    import numpy as np
+
+    from gennet_tpu_torch.data import mdc_xml as M
+
+    rng = np.random.default_rng(args.seed)
+    mdcset = M.MDCSet(args.detectors.split(","))
+    times = M.uniform_time(args.gps_start, args.gps_stop, args.number, rng=rng)
+    hrss = M.log_uniform(args.hrss[0], args.hrss[1], args.number, rng=rng)
+    for h, t in zip(hrss, times):
+        if args.kind == "sine-gaussian":
+            # ref make_hw-xml.py (sineGauss variant): q=15, f ~ U[100,200]
+            mdcset + M.sine_gaussian(q=args.q, frequency=float(rng.uniform(*args.f_range)),
+                                     hrss=float(h), time=float(t))
+        else:
+            # ref make_hw-xml.py (wnb variant): 0.1 s, 10 Hz bw @ 1 kHz
+            mdcset + M.white_noise_burst(duration=0.1, bandwidth=10.0, frequency=1000.0,
+                                         hrss=float(h), time=float(t), seed=args.seed)
+    os.makedirs(os.path.dirname(args.xml) or ".", exist_ok=True)
+    mdcset.save_xml(args.xml)
+    out = {"injections": len(mdcset.injections), "xml": args.xml}
+    if args.render_dir:
+        out["files"] = len(M.render_injection_files(mdcset, args.render_dir))
+    return out
 
 
 def main(argv=None):
@@ -99,39 +151,71 @@ def main(argv=None):
         _add_dataclass_args(p, dc)
         p.add_argument("--data-parallel", action="store_true")
 
+    p_mdc = sub.add_parser("make-mdc", help="build a hardware-injection MDC set "
+                           "(sim_burst XML + per-injection ASCII strain files)")
+    p_mdc.add_argument("--kind", choices=("sine-gaussian", "wnb"), default="sine-gaussian")
+    p_mdc.add_argument("-n", "--number", type=int, default=1000)
+    p_mdc.add_argument("--gps-start", type=int, default=1126620016)
+    p_mdc.add_argument("--gps-stop", type=int, default=1136995216)
+    p_mdc.add_argument("--hrss", type=float, nargs=2, default=[5e-23, 1e-20])
+    p_mdc.add_argument("--f-range", type=float, nargs=2, default=[100.0, 200.0])
+    p_mdc.add_argument("-q", type=float, default=15.0)
+    p_mdc.add_argument("--detectors", type=str, default="H1,L1")
+    p_mdc.add_argument("--xml", type=str, default="mdc/set.xml.gz")
+    p_mdc.add_argument("--render-dir", type=str, default=None,
+                       help="also write per-injection ASCII strain files here")
+    p_mdc.add_argument("--seed", type=int, default=3)
+
     p_samp = sub.add_parser("sample-posterior", help="draw posterior samples from trained models")
     _add_dataclass_args(p_samp, BBHConfig)
     p_samp.add_argument("--n-samples", type=int, default=4000)
     p_samp.add_argument("--out", type=str, default="posterior.npz")
 
     for p in sub.choices.values():
-        p.add_argument("--device", type=str, default="cuda")
+        if p is not p_mdc:
+            p.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
-    if getattr(args, "data_parallel", False):
-        raise NotImplementedError("--data-parallel: not ported yet (ROADMAP queue 1 #11)")
+    if args.cmd == "make-mdc":
+        out = make_mdc(args)
+        print(json.dumps(out))
+        return out
 
     from gennet_tpu_torch import runtime
     from gennet_tpu_torch.cli import workloads
 
     info = runtime.setup(args.device)
-    print(json.dumps({"runtime": info}))
-    if args.cmd == "make-bank":
-        out = make_bank(args)
-    elif args.cmd == "smoke":
-        out = workloads.run_burst_smoke(_build_dataclass(args, BurstSmokeConfig),
-                                        device=args.device)
-    elif args.cmd == "sample-posterior":
-        out = workloads.sample_posterior(_build_dataclass(args, BBHConfig),
-                                         n_samples=args.n_samples, out=args.out,
-                                         device=args.device)
-    else:
-        cfg = _build_dataclass(args, BBHConfig)
-        if args.cmd == "train-cnn":
-            cfg = dataclasses.replace(cfg, gan_iters=0)
-        elif args.cmd == "train-gan":
-            cfg = dataclasses.replace(cfg, pe_iters=0, resume=True)
-        out = workloads.run_bbh(cfg, device=args.device)
-    print(json.dumps(out))
+    mesh = None
+    if getattr(args, "data_parallel", False):
+        from gennet_tpu_torch.train.mesh import init_data_mesh
+
+        mesh = init_data_mesh(args.device, command=args.cmd)
+        info = runtime.setup(str(mesh.device))  # this rank's card
+    try:
+        main_rank = mesh is None or mesh.is_main
+        device = args.device if mesh is None else mesh.device
+        if main_rank:
+            print(json.dumps({"runtime": info}))
+        if args.cmd == "make-bank":
+            out = make_bank(args, mesh)
+        elif args.cmd == "smoke":
+            out = workloads.run_burst_smoke(_build_dataclass(args, BurstSmokeConfig),
+                                            device=device, mesh=mesh)
+        elif args.cmd == "sample-posterior":
+            out = workloads.sample_posterior(_build_dataclass(args, BBHConfig),
+                                             n_samples=args.n_samples, out=args.out,
+                                             device=device)
+        else:
+            cfg = _build_dataclass(args, BBHConfig)
+            if args.cmd == "train-cnn":
+                cfg = dataclasses.replace(cfg, gan_iters=0)
+            elif args.cmd == "train-gan":
+                cfg = dataclasses.replace(cfg, pe_iters=0, resume=True)
+            out = workloads.run_bbh(cfg, device=device, mesh=mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+    if main_rank:
+        print(json.dumps(out))
     return out
 
 

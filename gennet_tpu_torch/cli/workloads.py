@@ -21,6 +21,17 @@
   draws scored against the grid, with the same early stop, restarts,
   anneal and selection.
 
+Both workloads take ``mesh`` (:mod:`gennet_tpu_torch.train.mesh`), the
+reference's data parallelism: every rank prepares the same event and bank
+from the seed, trains on its block of the bank's rows with its own random
+stream, and the PE and GAN steps average their gradients across the
+ranks. Evaluation, posterior draws, plots, metric rows, the CNN cache and
+checkpoint writes run on rank 0, and rank 0's decisions (the early stop,
+the restarts, the best-whiteness state) are broadcast, so that every rank
+leaves every loop at the same step. A bank whose rows do not divide over
+the ranks is refused before any work, as the reference's ``shard_map``
+refuses it.
+
 The configs keep every field and default of the JAX configs, so the flags
 are identical, and every option is ported: ``bf16`` computes G and D in
 bfloat16 (parameters float32), and ``plots`` (on by default) writes the
@@ -59,6 +70,7 @@ from gennet_tpu_torch.train.cnn import CNNConfig, cnn_step, init_cnn, normalize_
 from gennet_tpu_torch.train.cnn import predict as cnn_predict
 from gennet_tpu_torch.train.gan import (GANConfig, GANState, gan_step, init_gan, knobs_from_cfg,
                                         sample_generator)
+from gennet_tpu_torch.train.mesh import DataMesh, check_rows, is_main, rank_generator
 from gennet_tpu_torch.train.metrics import MetricLogger, fetch_metrics
 
 
@@ -138,8 +150,21 @@ _PE_PLOT_ROWS = 4000
 _PE_SEED_OFFSET = 3
 
 
-def _pe_generator(seed: int, device) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(seed + _PE_SEED_OFFSET)
+def _pe_generator(seed: int, device, mesh: DataMesh | None = None) -> torch.Generator:
+    return rank_generator(seed + _PE_SEED_OFFSET, 0 if mesh is None else mesh.rank, device)
+
+
+def _rank_stream(gen: torch.Generator, seed: int, mesh: DataMesh | None) -> torch.Generator:
+    """The stream a rank draws from once the shared event and bank are
+    made: rank 0 goes on with ``gen``, rank r > 0 switches to its own."""
+    if mesh is None or mesh.rank == 0:
+        return gen
+    return rank_generator(seed, mesh.rank, gen.device)
+
+
+def _decide(mesh: DataMesh | None, value):
+    """Rank 0's decision on every rank (the value itself without a mesh)."""
+    return value if mesh is None else mesh.decide(value)
 
 
 def _check_common(cfg):
@@ -208,13 +233,41 @@ def effective_n_sig(cfg: BBHConfig, norm: float) -> float:
     return float(norm) if getattr(cfg, "n_sig_event", True) else cfg.n_sig
 
 
-def gan_real_bank(cfg: BBHConfig, bank, signal):
+def gan_real_bank(cfg: BBHConfig, bank, signal, mesh: DataMesh | None = None):
     """The GAN's real set: the bank plus ``twin_boost`` copies of the event
-    twin (the CNN's bank is untouched)."""
+    twin (the CNN's bank is untouched). Under a mesh the boost is rounded
+    up until the rows divide over the ranks (ref: workloads.py:1136-1153)."""
     boost = int(getattr(cfg, "twin_boost", 0) or 0)
     if boost <= 0 or bank is None:
         return bank
+    if mesh is not None:
+        boost += (-(bank.shape[0] + boost)) % mesh.world
     return torch.cat([bank, signal[None, :].expand(boost, -1)])
+
+
+def _bank_file_rows(path: str) -> int:
+    """The row count of a bank file, read before the bank is loaded."""
+    if path.endswith(".gntb"):
+        with BankStore(path) as store:
+            return store.n
+    with np.load(path) as data:
+        return int(data["templates"].shape[0])
+
+
+def check_bbh_rows(cfg: BBHConfig, mesh: DataMesh | None):
+    """Refuse, before any work, a PE bank whose rows do not divide over the
+    ranks: ``training_num − 1`` rows of a synthesized bank (the event twin
+    is dropped, so the default 50,000 gives 49,999 and the reference's own
+    ``train-bbh --data-parallel`` fails on more than one device), or a
+    bank file's rows. The GAN bank is then the same rows, or rounded up by
+    ``twin_boost``."""
+    if mesh is None:
+        return
+    if cfg.bank_file:
+        check_rows(_bank_file_rows(cfg.bank_file), mesh.world, f"the bank file {cfg.bank_file}")
+    else:
+        check_rows(cfg.training_num - 1, mesh.world,
+                   f"the PE bank (training_num {cfg.training_num} less the event twin)")
 
 
 def _bbh_bank_cfg(cfg: BBHConfig):
@@ -299,33 +352,40 @@ def _anneal_knobs(gan_cfg: GANConfig, cfg):
             int(cfg.gan_iters * (1.0 - cfg.anneal_frac)))
 
 
-def run_bbh(cfg: BBHConfig, *, device):
+def run_bbh(cfg: BBHConfig, *, device, mesh: DataMesh | None = None):
     """Flagship pipeline on ``device``: CNN PE training, then GAN training
     with posterior validation against the exact grid posterior. Returns the
-    same summary dict as the JAX workload."""
+    same summary dict as the JAX workload (``None`` on ranks other than
+    0 of a ``mesh``)."""
     check_bbh_config(cfg)
+    check_bbh_rows(cfg, mesh)
+    main = is_main(mesh)
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
     os.makedirs(cfg.out_dir, exist_ok=True)
-    with open(os.path.join(cfg.out_dir, "config.json"), "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=1)
-    log = MetricLogger(cfg.out_dir, "bbh")
+    if main:
+        with open(os.path.join(cfg.out_dir, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f, indent=1)
+    log = MetricLogger(cfg.out_dir if main else None, "bbh")
 
     bank, targets, signal, measured, norm, psd, truth, lalinf_samples = _prepare_bbh_data(
         cfg, gen, device)
+    gen = _rank_stream(gen, cfg.seed, mesh)
     bank_cfg = _bbh_bank_cfg(cfg)
     n_sig_eff = effective_n_sig(cfg, norm)
-    print(f"effective noise std (residual/whiteness targets): {n_sig_eff:.4f}"
-          f" ({'event norm' if cfg.n_sig_event else 'config n_sig'})")
+    if main:
+        print(f"effective noise std (residual/whiteness targets): {n_sig_eff:.4f}"
+              f" ({'event norm' if cfg.n_sig_event else 'config n_sig'})")
 
     # ---- reference posterior: the lalinference products' when mounted
     # (ref: :1274-1279), else the exact (mc, q) grid of the synthetic event
+    # (evaluation: rank 0 only)
     grid = None
     ref_samples = None
-    if lalinf_samples is not None:
+    if main and lalinf_samples is not None:
         ref_samples = np.asarray(lalinf_samples)
-    elif cfg.grid_grain > 0:
+    elif main and cfg.grid_grain > 0:
         sigma_eff = float(torch.std(measured - signal, correction=0))
         Lg, gmc, gq = gp.bbh_grid_posterior(measured, psd, bank_cfg, norm, sigma_eff,
                                             grain=cfg.grid_grain)
@@ -339,7 +399,9 @@ def run_bbh(cfg: BBHConfig, *, device):
     pe_use_ema = cfg.pe_ema_decay > 0
     pe_model = CombinedPE(n_pix=cfg.n_pix) if cfg.comb_pe_model else DualBranchPE(n_pix=cfg.n_pix)
     pe_state = init_cnn(torch.Generator().manual_seed(cfg.seed + 1), pe_model, pe_cfg, device)
-    pe_gen = _pe_generator(cfg.seed, device)
+    pe_gen = _pe_generator(cfg.seed, device, mesh)
+    if mesh is not None:
+        mesh.broadcast_modules_(pe_model)
 
     # CNN sanity set: ideal waveforms from the reference posterior's own
     # mass rows; the CNN's cloud on them bounds its best posterior
@@ -353,12 +415,14 @@ def run_bbh(cfg: BBHConfig, *, device):
     # checkpoints, restored on resume (ref: :1310-1328)
     if cfg.cnn_cache:
         pe_ckpt = CheckpointManager(os.path.join(cfg.cnn_cache, bbh_cnn_cache_tag(cfg)),
-                                    max_to_keep=1)
-        restored, pe_extra = pe_ckpt.restore(pe_state)
-        if restored is not None:
+                                    max_to_keep=1, mesh=mesh)
+        # the entry is shared across world sizes, as the reference's is:
+        # one written at another world restores without its generator state
+        restored, pe_extra = pe_ckpt.restore(pe_state, any_world=True)
+        if restored is not None and main:
             print("CNN PE restored from cache")
     else:
-        pe_ckpt = CheckpointManager(os.path.join(cfg.out_dir, "ckpt_pe"))
+        pe_ckpt = CheckpointManager(os.path.join(cfg.out_dir, "ckpt_pe"), mesh=mesh)
         pe_extra = pe_ckpt.restore(pe_state)[1] if cfg.resume else None
     if pe_extra:
         pe_gen.set_state(pe_extra["gen"])
@@ -368,10 +432,13 @@ def run_bbh(cfg: BBHConfig, *, device):
     def pe_save(step):
         pe_ckpt.save(step, pe_state, extra={"gen": pe_gen.get_state()})
 
+    # each rank trains on its block of the bank's rows
+    pe_bank, pe_targets = ((bank, targets) if mesh is None
+                           else (mesh.shard_rows(bank), mesh.shard_rows(targets)))
     # i counts completed updates
     for i in range(start + 1, cfg.pe_iters + 1):
-        pe_state, m = cnn_step(pe_state, bank, targets, pe_gen, cfg=pe_cfg)
-        if i % cfg.pe_cadence == 0:
+        pe_state, m = cnn_step(pe_state, pe_bank, pe_targets, pe_gen, cfg=pe_cfg, mesh=mesh)
+        if main and i % cfg.pe_cadence == 0:
             m = fetch_metrics(m)
             log.log(i, m)
             print(log.status_line(i, m, log.steps_per_sec(i)))
@@ -391,15 +458,19 @@ def run_bbh(cfg: BBHConfig, *, device):
             pe_save(i)
     if cfg.pe_iters > start:
         pe_save(cfg.pe_iters)
-    # final CNN accuracy: MSE and mean |err| per parameter on a held-out
-    # draw (ref: bbhMahoGANy.py:1188-1198)
-    idx = np.random.default_rng(0).choice(bank.shape[0], min(4000, bank.shape[0]), replace=False)
-    idx_t = torch.as_tensor(idx, device=device)
-    est = cnn_predict(pe_state, bank[idx_t], use_ema=pe_use_ema).cpu().numpy()
-    tgt = targets[idx_t].cpu().numpy()
-    pe_rms = [float(np.mean((tgt[:, k] - est[:, k]) ** 2)) for k in range(2)]
-    pe_std = [float(np.mean(np.abs(tgt[:, k] - est[:, k]))) for k in range(2)]
-    print(f"Completed CNN PE  RMS: {pe_rms[0]:f},{pe_rms[1]:f}  pe_std: {pe_std[0]:f},{pe_std[1]:f}")
+    pe_rms = pe_std = None
+    if main:
+        # final CNN accuracy: MSE and mean |err| per parameter on a
+        # held-out draw (ref: bbhMahoGANy.py:1188-1198)
+        idx = np.random.default_rng(0).choice(bank.shape[0], min(4000, bank.shape[0]),
+                                              replace=False)
+        idx_t = torch.as_tensor(idx, device=device)
+        est = cnn_predict(pe_state, bank[idx_t], use_ema=pe_use_ema).cpu().numpy()
+        tgt = targets[idx_t].cpu().numpy()
+        pe_rms = [float(np.mean((tgt[:, k] - est[:, k]) ** 2)) for k in range(2)]
+        pe_std = [float(np.mean(np.abs(tgt[:, k] - est[:, k]))) for k in range(2)]
+        print(f"Completed CNN PE  RMS: {pe_rms[0]:f},{pe_rms[1]:f}  "
+              f"pe_std: {pe_std[0]:f},{pe_std[1]:f}")
 
     sanity_cloud, cnn_sanity_beta = None, None
     if sanity_waveforms is not None:
@@ -428,7 +499,9 @@ def run_bbh(cfg: BBHConfig, *, device):
     D = PairDiscriminator(n_pix=cfg.n_pix, in_ch=2 if cfg.pair_d else 1,
                           conv_impl=cfg.conv_impl, dtype=dtype)
     gan_state = init_gan(torch.Generator().manual_seed(cfg.seed + 2), G, D, gan_cfg, device)
-    gan_ckpt = CheckpointManager(os.path.join(cfg.out_dir, "ckpt_gan"))
+    if mesh is not None:
+        mesh.broadcast_modules_(G, D)
+    gan_ckpt = CheckpointManager(os.path.join(cfg.out_dir, "ckpt_gan"), mesh=mesh)
     if cfg.resume:
         # the newest step: after a finished run with evals, the diagnostic
         # best-whiteness state at gan_iters + 1, as in the reference
@@ -554,7 +627,9 @@ def run_bbh(cfg: BBHConfig, *, device):
         return out
 
     base_knobs, anneal_knobs, anneal_start = _anneal_knobs(gan_cfg, cfg)
-    gan_bank = gan_real_bank(cfg, bank, signal)
+    gan_bank = gan_real_bank(cfg, bank, signal, mesh)
+    if mesh is not None:
+        gan_bank = mesh.shard_rows(gan_bank)
     beta_hist, beta_steps = [], []
     best_white, best_state, best_gen = -1.0, None, None
     sel_score, sel_step = float("-inf"), None
@@ -562,39 +637,49 @@ def run_bbh(cfg: BBHConfig, *, device):
     log.steps_per_sec(start)  # reset the steps/sec window for the GAN phase
     for i in range(start + 1, cfg.gan_iters + 1):  # i counts completed iterations
         knobs = anneal_knobs if (cfg.anneal_frac > 0 and i - 1 >= anneal_start) else base_knobs
-        gan_state, m = gan_step(gan_state, gan_bank, measured, gen, knobs, cfg=gan_cfg)
-        if i % cfg.cadence == 0:
+        gan_state, m = gan_step(gan_state, gan_bank, measured, gen, knobs, cfg=gan_cfg,
+                                mesh=mesh)
+        if main and i % cfg.cadence == 0:
             mh = fetch_metrics(m)
             log.log(i, mh)
             print(log.status_line(i, mh, log.steps_per_sec(i)))
         if i % cfg.eval_cadence == 0:
-            snapshots.append(_snapshot(gan_state))
-            ev = eval_posterior(list(snapshots), i)
-            if ev["whiteness"] > best_white:
+            improved = freeze = False
+            if main:
+                snapshots.append(_snapshot(gan_state))
+                ev = eval_posterior(list(snapshots), i)
+                improved = bool(ev["whiteness"] > best_white)
+                if improved:
+                    best_white = ev["whiteness"]
+                if ev.get("elbo", float("-inf")) > sel_score:
+                    sel_score, sel_step = ev["elbo"], i
+                # combined early stop (ref :1648-1661): white draws AND a
+                # converged raw residual loss of the newest step
+                # (freeze_on_res ≤ 0: whiteness only)
+                res_raw = float(m["res_loss"]) / max(cfg.res_loss_weight, 1e-30)
+                res_ok = cfg.freeze_on_res <= 0 or 0.0 < res_raw < cfg.freeze_on_res
+                freeze = bool(cfg.freeze_on_white > 0 and ev["whiteness"] >= cfg.freeze_on_white
+                              and res_ok)
+            improved, freeze = _decide(mesh, (improved, freeze))
+            if improved:
                 # a copy of the whole state: it restores like any checkpoint
-                best_white = ev["whiteness"]
-                best_state = copy.deepcopy(state_dict_of(gan_state))
+                # (each rank keeps its stream's state for the gathered save)
+                best_state = copy.deepcopy(state_dict_of(gan_state)) if main else {}
                 best_gen = gen.get_state()
-            if ev.get("elbo", float("-inf")) > sel_score:
-                sel_score, sel_step = ev["elbo"], i
-            # combined early stop (ref :1648-1661): white draws AND a converged
-            # raw residual loss of the newest step (freeze_on_res ≤ 0: whiteness only)
-            res_raw = float(m["res_loss"]) / max(cfg.res_loss_weight, 1e-30)
-            res_ok = cfg.freeze_on_res <= 0 or 0.0 < res_raw < cfg.freeze_on_res
-            if (cfg.freeze_on_white > 0 and ev["whiteness"] >= cfg.freeze_on_white
-                    and res_ok):
+            if freeze:
                 frozen_at = i
-                print(f"residuals white ({ev['whiteness']:.3f} ≥ {cfg.freeze_on_white}, "
-                      f"raw res_loss {res_raw:.2e}) — training frozen at {i}")
+                if main:
+                    print(f"residuals white ({ev['whiteness']:.3f} ≥ {cfg.freeze_on_white}, "
+                          f"raw res_loss {res_raw:.2e}) — training frozen at {i}")
                 gan_save(i)
                 break
-            if ev["beta"] is not None:
+            if main and ev["beta"] is not None:
                 beta_hist.append(ev["beta"])
                 beta_steps.append(i)
                 print(f"beta result: {ev['beta']}" +
                       ("" if ev["grid_overlap"] is None
                        else f"  grid overlap: {ev['grid_overlap']:.4f}"))
-            if cfg.plots:
+            if main and cfg.plots:
                 sig, meas, wf = (t.cpu().numpy() for t in (signal, measured, ev["wf"]))
                 plots.plot_waveform_est(sig, meas, wf, cfg.out_dir, i)
                 plots.plot_waveform_est(sig, meas, wf, cfg.out_dir, i, zoom=(450, 550))
@@ -611,7 +696,7 @@ def run_bbh(cfg: BBHConfig, *, device):
     whiteness = beta_final = grid_overlap_final = beta_sanity_final = None
     beta_raw_final = grid_overlap_raw_final = None
     sel_route_name, sel_info = None, None
-    if cfg.gan_iters > start:
+    if main and cfg.gan_iters > start:
         final_states = [gan_state]
         if cfg.n_snapshots > 1:
             # the pooled snapshots, plus the final state unless the last eval took it
@@ -661,10 +746,12 @@ def run_bbh(cfg: BBHConfig, *, device):
                                     fname="waveform_final.png")
             plots.plot_pe_samples(ev["samples"], truth, cfg.out_dir, cfg.gan_iters,
                                   ref_samples=ref_samples, fname="pe_samples_final.png")
-        if best_state is not None:
-            gan_save(cfg.gan_iters + 1, best_state, best_gen)  # diagnostic state
+    if cfg.gan_iters > start and best_state is not None:
+        gan_save(cfg.gan_iters + 1, best_state, best_gen)  # diagnostic state
 
     log.close()
+    if not main:
+        return None
     return {
         "beta": beta_final,
         "beta_raw": beta_raw_final,
@@ -861,21 +948,25 @@ def burst_cnn_cache_tag(cfg: BurstSmokeConfig) -> str:
 _BURST_BOUNDS = ((0.25, 0.75), (1.0 / 60.0, 1.0 / 15.0))
 
 
-def run_burst_smoke(cfg: BurstSmokeConfig, *, device):
+def run_burst_smoke(cfg: BurstSmokeConfig, *, device, mesh: DataMesh | None = None):
     """The burst mahoGANy on ``device`` (ref: tests/burstMahoGANy.py:569-901):
     analytic bank and event, exact (t0, τ) grid, CNN PE, the 3-loss GAN with
     early stop, restarts and terminal anneal, posterior draws scored
-    against the grid. Returns the same summary dict as the JAX workload.
+    against the grid. Returns the same summary dict as the JAX workload
+    (``None`` on ranks other than 0 of a ``mesh``).
 
     Step labels count completed iterations, as in :func:`run_bbh` (the JAX
     loop labels an unchunked run's cadence points one step early).
     """
     check_burst_config(cfg)
+    if mesh is not None:
+        check_rows(cfg.n_signals, mesh.world, "the burst bank (n_signals)")
+    main = is_main(mesh)
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
     os.makedirs(cfg.out_dir, exist_ok=True)
-    log = MetricLogger(cfg.out_dir, "burst")
+    log = MetricLogger(cfg.out_dir if main else None, "burst")
     snap_dir = os.path.join(cfg.out_dir, "GAN_posterior_samples")
 
     # training bank and the fixed event at (t0, τ) = truth (ref: :581,614-631)
@@ -883,8 +974,14 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device):
     truth = (0.5, 1.0 / 25.0)
     signal = sine_gaussian(*truth, N=cfg.n_pix, device=device)
     measured = signal + cfg.n_sig * torch.randn(signal.shape, generator=gen, device=device)
-    # exact grid posterior (ref: :716-726)
-    L, gx, gy = gp.burst_grid_posterior(measured, cfg.n_sig, cfg.pe_grain)
+    gen = _rank_stream(gen, cfg.seed, mesh)
+    # each rank trains on its block of the bank's rows
+    train_bank, train_pars = ((bank, pars) if mesh is None
+                              else (mesh.shard_rows(bank), mesh.shard_rows(pars)))
+    # exact grid posterior (ref: :716-726; evaluation: rank 0 only)
+    L = gx = gy = None
+    if main:
+        L, gx, gy = gp.burst_grid_posterior(measured, cfg.n_sig, cfg.pe_grain)
     measured_np, signal_np = measured.cpu().numpy(), signal.cpu().numpy()
 
     def synth(s):
@@ -895,30 +992,35 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device):
     pe_cfg = CNNConfig(n_pix=cfg.n_pix, batch_size=cfg.batch_size, lr=cfg.lr,
                        noise_frac=cfg.pe_noise_frac, noise_scale_max=2.0 * cfg.n_sig,
                        max_normalize=not cfg.pe_no_norm, max_per_sample=cfg.per_sample_max)
-    pe_state = init_cnn(torch.Generator().manual_seed(cfg.seed + 1), BurstPE(n_pix=cfg.n_pix),
-                        pe_cfg, device)
+    pe_model = BurstPE(n_pix=cfg.n_pix)
+    pe_state = init_cnn(torch.Generator().manual_seed(cfg.seed + 1), pe_model, pe_cfg, device)
+    if mesh is not None:
+        mesh.broadcast_modules_(pe_model)
     # the PE phase draws from its own generator, so a cache hit leaves the
     # GAN phase's draws as they are on a miss (ref: :287-307)
     cache = (CheckpointManager(os.path.join(cfg.cnn_cache, burst_cnn_cache_tag(cfg)),
-                               max_to_keep=1) if cfg.cnn_cache else None)
-    if cache is not None and cache.restore(pe_state)[0] is not None:
-        print("CNN PE restored from cache")
+                               max_to_keep=1, mesh=mesh) if cfg.cnn_cache else None)
+    if cache is not None and cache.restore(pe_state, any_world=True)[0] is not None:
+        if main:
+            print("CNN PE restored from cache")
     else:
-        pe_gen = _pe_generator(cfg.seed, device)
+        pe_gen = _pe_generator(cfg.seed, device, mesh)
         for i in range(1, cfg.pe_iters + 1):  # i counts completed updates
-            pe_state, m = cnn_step(pe_state, bank, pars, pe_gen, cfg=pe_cfg)
-            if i % cfg.cadence == 0:
+            pe_state, m = cnn_step(pe_state, train_bank, train_pars, pe_gen, cfg=pe_cfg,
+                                   mesh=mesh)
+            if main and i % cfg.cadence == 0:
                 m = fetch_metrics(m)
                 log.log(i, m)
                 print(log.status_line(i, m, log.steps_per_sec(i)))
         if cache is not None:
             cache.save(cfg.pe_iters, pe_state)
-    # PE accuracy on the bank
-    est = cnn_predict(pe_state, bank[:4000]).cpu().numpy()
-    tgt = pars[:4000].cpu().numpy()
-    rms = [float(np.mean((tgt[:, k] - est[:, k]) ** 2)) for k in range(2)]
-    pe_std = [float(np.mean(np.abs(tgt[:, k] - est[:, k]))) for k in range(2)]
-    print(f"Completed CNN PE  RMS: {rms[0]:f},{rms[1]:f}")
+    rms = pe_std = None
+    if main:  # PE accuracy on the bank
+        est = cnn_predict(pe_state, bank[:4000]).cpu().numpy()
+        tgt = pars[:4000].cpu().numpy()
+        rms = [float(np.mean((tgt[:, k] - est[:, k]) ** 2)) for k in range(2)]
+        pe_std = [float(np.mean(np.abs(tgt[:, k] - est[:, k]))) for k in range(2)]
+        print(f"Completed CNN PE  RMS: {rms[0]:f},{rms[1]:f}")
 
     def cnn(w):
         return cnn_predict(pe_state, normalize_max(w, pe_cfg))
@@ -935,6 +1037,8 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device):
     G = BurstGenerator(n_out=cfg.n_pix)
     D = BurstDiscriminator(n_pix=cfg.n_pix)
     gan_state = init_gan(torch.Generator().manual_seed(cfg.seed + 2), G, D, gan_cfg, device)
+    if mesh is not None:
+        mesh.broadcast_modules_(G, D)
     snapshots = deque(maxlen=max(1, cfg.n_snapshots))
     # posterior sampler: optionally a weaker-dropout clone of G (the same
     # weights; GaussianDropout carries none)
@@ -978,7 +1082,7 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device):
         return wf, samples, route_elbo
 
     base_knobs, anneal_knobs, anneal_start = _anneal_knobs(gan_cfg, cfg)
-    gm = gp.grid_moments(L, gx, gy)
+    gm = gp.grid_moments(L, gx, gy) if main else None
     best_score = -1.0
     sel_score, sel_step = float("-inf"), None
     frozen_at = None
@@ -989,84 +1093,94 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device):
     max_attempts = 1 + (cfg.gan_restarts if cfg.freeze_on_white > 0 else 0)
     for attempt in range(max_attempts):
         if attempt:
-            print(f"schedule ended unconverged — random restart {attempt}")
             gan_state = init_gan(torch.Generator().manual_seed(cfg.seed + 1000 + attempt),
                                  G, D, gan_cfg, device)
-            snapshots.clear()
-            # the on-disk cloud history stays a single trajectory
-            for path in glob.glob(os.path.join(snap_dir, "posterior_samples_*.npz")):
-                os.remove(path)
+            if mesh is not None:
+                mesh.broadcast_modules_(G, D)
+            if main:
+                print(f"schedule ended unconverged — random restart {attempt}")
+                snapshots.clear()
+                # the on-disk cloud history stays a single trajectory
+                for path in glob.glob(os.path.join(snap_dir, "posterior_samples_*.npz")):
+                    os.remove(path)
         n_cad = 0
         for i in range(1, cfg.gan_iters + 1):  # i counts completed iterations
             knobs = anneal_knobs if (cfg.anneal_frac > 0 and i - 1 >= anneal_start) else base_knobs
-            gan_state, m = gan_step(gan_state, bank, measured, gen, knobs, cfg=gan_cfg)
+            gan_state, m = gan_step(gan_state, train_bank, measured, gen, knobs, cfg=gan_cfg,
+                                    mesh=mesh)
             if i % cfg.cadence != 0:
                 continue
-            mh = fetch_metrics(m)
-            log.log(i, mh)
-            print(log.status_line(i, mh, log.steps_per_sec(i)))
             n_cad += 1
-            if n_cad % max(1, cfg.snapshot_every) == 0:
-                snapshots.append(_snapshot(gan_state))
-            if n_cad % max(1, cfg.eval_every) != 0:
-                continue
-            wf, samples, route_elbo = draw_posterior(list(snapshots) or [gan_state])
-            save_posterior_snapshot(snap_dir, i, samples)
-            # cloud diagnostics against the exact grid: bias (mean offset in
-            # exact-σ units) and dispersion ratio per parameter
-            wf_np = wf.cpu().numpy().reshape(wf.shape[0], -1)
-            diag = {
-                "bias_t0": (float(samples[:, 0].mean()) - gm[0]) / max(gm[2], 1e-12),
-                "bias_tau": (float(samples[:, 1].mean()) - gm[1]) / max(gm[3], 1e-12),
-                "disp_t0": float(samples[:, 0].std()) / max(gm[2], 1e-12),
-                "disp_tau": float(samples[:, 1].std()) / max(gm[3], 1e-12),
-                "wf_corr": float(np.mean(
-                    np.sum(wf_np * signal_np[None, :], axis=1)
-                    / (np.linalg.norm(wf_np, axis=1) * np.linalg.norm(signal_np) + 1e-30))),
-            }
-            # degenerate-output guard (ref: bbhMahoGANy.py:1354-1355)
-            if samples[:, 0].var() > 0 and samples[:, 1].var() > 0:
-                score = gp.grid_overlap_score(samples, L, gx, gy)
-                diag["grid_overlap"] = score
-                print(f"grid overlap: {score:.4f}  "
-                      f"bias: ({diag['bias_t0']:+.2f}, {diag['bias_tau']:+.2f})σ  "
-                      f"disp: ({diag['disp_t0']:.2f}, {diag['disp_tau']:.2f})×  "
-                      f"wf_corr: {diag['wf_corr']:.4f}")
-                best_score = max(best_score, score)
-                if cfg.select_best == "elbo":
-                    # inside the guard: a collapsed cloud is never selectable
-                    elbo = route_elbo if route_elbo is not None else \
-                        pp.elbo_score(samples, synth, measured, cfg.n_sig)
-                    if np.isfinite(elbo):
-                        diag["elbo"] = elbo
-                    print(f"cloud ELBO: {elbo:.1f}")
-                    if elbo > sel_score:
-                        sel_score, sel_step = elbo, i
-            if cfg.freeze_on_white > 0:
-                # the posterior-mean waveform's residual (eval/whiteness)
-                # AND a converged raw residual loss
-                ws = posterior_whiteness(measured_np / cfg.n_sig, wf_np[:256] / cfg.n_sig, 1.0)
-                w = (ws["mean_pass"] + ws["var_pass"] + ws["ljung_box_pass"]) / 3.0
-                diag["whiteness"] = w
-                res_raw = mh["res_loss"] / max(cfg.res_loss_weight, 1e-30)
-                res_ok = cfg.freeze_on_res <= 0 or 0.0 < res_raw < cfg.freeze_on_res
-                if w >= cfg.freeze_on_white and res_ok:
-                    frozen_at = i
-                    log.log(i, diag)
+            eval_now = n_cad % max(1, cfg.eval_every) == 0
+            freeze = False  # rank 0 evaluates and decides the early stop
+            if main:
+                mh = fetch_metrics(m)
+                log.log(i, mh)
+                print(log.status_line(i, mh, log.steps_per_sec(i)))
+                if n_cad % max(1, cfg.snapshot_every) == 0:
+                    snapshots.append(_snapshot(gan_state))
+            if main and eval_now:
+                wf, samples, route_elbo = draw_posterior(list(snapshots) or [gan_state])
+                save_posterior_snapshot(snap_dir, i, samples)
+                # cloud diagnostics against the exact grid: bias (mean offset in
+                # exact-σ units) and dispersion ratio per parameter
+                wf_np = wf.cpu().numpy().reshape(wf.shape[0], -1)
+                diag = {
+                    "bias_t0": (float(samples[:, 0].mean()) - gm[0]) / max(gm[2], 1e-12),
+                    "bias_tau": (float(samples[:, 1].mean()) - gm[1]) / max(gm[3], 1e-12),
+                    "disp_t0": float(samples[:, 0].std()) / max(gm[2], 1e-12),
+                    "disp_tau": float(samples[:, 1].std()) / max(gm[3], 1e-12),
+                    "wf_corr": float(np.mean(
+                        np.sum(wf_np * signal_np[None, :], axis=1)
+                        / (np.linalg.norm(wf_np, axis=1) * np.linalg.norm(signal_np) + 1e-30))),
+                }
+                # degenerate-output guard (ref: bbhMahoGANy.py:1354-1355)
+                if samples[:, 0].var() > 0 and samples[:, 1].var() > 0:
+                    score = gp.grid_overlap_score(samples, L, gx, gy)
+                    diag["grid_overlap"] = score
+                    print(f"grid overlap: {score:.4f}  "
+                          f"bias: ({diag['bias_t0']:+.2f}, {diag['bias_tau']:+.2f})σ  "
+                          f"disp: ({diag['disp_t0']:.2f}, {diag['disp_tau']:.2f})×  "
+                          f"wf_corr: {diag['wf_corr']:.4f}")
+                    best_score = max(best_score, score)
+                    if cfg.select_best == "elbo":
+                        # inside the guard: a collapsed cloud is never selectable
+                        elbo = route_elbo if route_elbo is not None else \
+                            pp.elbo_score(samples, synth, measured, cfg.n_sig)
+                        if np.isfinite(elbo):
+                            diag["elbo"] = elbo
+                        print(f"cloud ELBO: {elbo:.1f}")
+                        if elbo > sel_score:
+                            sel_score, sel_step = elbo, i
+                if cfg.freeze_on_white > 0:
+                    # the posterior-mean waveform's residual (eval/whiteness)
+                    # AND a converged raw residual loss
+                    ws = posterior_whiteness(measured_np / cfg.n_sig, wf_np[:256] / cfg.n_sig, 1.0)
+                    w = (ws["mean_pass"] + ws["var_pass"] + ws["ljung_box_pass"]) / 3.0
+                    diag["whiteness"] = w
+                    res_raw = mh["res_loss"] / max(cfg.res_loss_weight, 1e-30)
+                    res_ok = cfg.freeze_on_res <= 0 or 0.0 < res_raw < cfg.freeze_on_res
+                    freeze = bool(w >= cfg.freeze_on_white and res_ok)
+                log.log(i, diag)
+                if freeze:
                     print(f"residuals white ({w:.3f} ≥ {cfg.freeze_on_white},"
                           f" raw res_loss {res_raw:.2e}) — training frozen at {i}")
-                    break
-            log.log(i, diag)
-            if cfg.plots:
-                plots.plot_waveform_est(signal_np, measured_np, wf_np, cfg.out_dir, i)
-                plots.plot_pe_samples(samples, truth, cfg.out_dir, i, grid=(L, gx, gy))
-                plots.plot_losses(log.arrays(), cfg.out_dir)
+                elif cfg.plots:
+                    plots.plot_waveform_est(signal_np, measured_np, wf_np, cfg.out_dir, i)
+                    plots.plot_pe_samples(samples, truth, cfg.out_dir, i, grid=(L, gx, gy))
+                    plots.plot_losses(log.arrays(), cfg.out_dir)
+            if eval_now and cfg.freeze_on_white > 0 and _decide(mesh, freeze):
+                frozen_at = i
+                break
         if frozen_at is not None:
             break
 
     # ---- final state (the reference scores the last iteration's state) ---
     whiteness, final_score = None, 0.0
     sel_route_name, sel_info = None, None
+    if not main:
+        log.close()
+        return None
     if cfg.gan_iters > 0:
         final_states = [gan_state]
         if cfg.n_snapshots > 1 and snapshots:

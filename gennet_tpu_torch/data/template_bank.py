@@ -173,6 +173,39 @@ def make_template_batch(gen: torch.Generator, n: int, psd: torch.Tensor,
     return t_work, params
 
 
+def make_noisy_template_batch(gen: torch.Generator, n: int, psd: torch.Tensor,
+                              cfg: BankConfig = BankConfig(), norm_constant: float = 1.0,
+                              n_noise: int = 1, time_grid: int = 1):
+    """The bank with per-template noise realisations and/or a grid of
+    merger-time placements per mass draw (ref: sim_data's ``Nnoise`` and
+    ``do_time_grid``, gw_template_maker.py:57,685-715). ``n_noise = 0`` is
+    a clean bank; ``n_noise ≥ 1`` stacks that many copies, each plus
+    N(0, 1) (whitened signal plus coloured noise is template + N(0, 1) in
+    the whitened domain); ``time_grid`` random peak placements per draw.
+
+    Returns (templates (n·time_grid·max(n_noise, 1), fs), params dict of
+    m1, m2, mc, q, idx), on psd's device.
+    """
+    masses = priors.sample_masses(gen, n, mdist=cfg.mdist)
+    m1 = torch.repeat_interleave(masses["m1"], time_grid)
+    m2 = torch.repeat_interleave(masses["m2"], time_grid)
+    lo, hi = cfg.beta_index_bounds()
+    idx = torch.randint(lo, max(hi, lo + 1), (n * time_grid,), generator=gen, device=gen.device)
+    clean = _synthesize(m1, m2, idx, psd, cfg) * norm_constant
+    n_rep = max(n_noise, 1)
+    out = clean.repeat(n_rep, 1)
+    if n_noise >= 1:
+        out = out + torch.randn(out.shape, generator=gen, device=gen.device,
+                                dtype=out.dtype).to(out.device)
+    params = {
+        "m1": m1.repeat(n_rep), "m2": m2.repeat(n_rep),
+        "mc": torch.repeat_interleave(masses["mc"], time_grid).repeat(n_rep),
+        "q": torch.repeat_interleave(masses["m2"] / masses["m1"], time_grid).repeat(n_rep),
+        "idx": idx.repeat(n_rep),
+    }
+    return out, params
+
+
 def make_templates_from_params(m1, m2, psd: torch.Tensor, cfg: BankConfig = BankConfig(),
                                norm_constant: float = 1.0, idx=None):
     """Templates for GIVEN mass rows (ref: lalinf_post_waveform_maker.py:
@@ -246,3 +279,29 @@ def make_bank(gen: torch.Generator, n_total: int, psd: torch.Tensor,
             params[k] = torch.cat([params[k], torch.tensor([extra[k]], dtype=params[k].dtype,
                                                            device=device)])
     return templates, params
+
+
+def make_bank_sharded(gen: torch.Generator, n_total: int, psd: torch.Tensor, mesh,
+                      cfg: BankConfig = BankConfig(), norm_constant: float = 1.0):
+    """Data-parallel bank synthesis (ref: template_bank.py:358-385): each
+    rank synthesizes its ``n_total // world`` rows from its own generator
+    in one :func:`make_template_batch` call, and the rows are gathered by
+    rank. No event twin is appended, as in the reference's sharded bank.
+    ``mesh=None`` is a world of 1. ``n_total`` must divide by the world.
+
+    Returns (templates (n_total, fs), params dict of (n_total,) tensors) on
+    every rank, on psd's device.
+    """
+    from gennet_tpu_torch.train.mesh import check_rows
+
+    world = 1 if mesh is None else mesh.world
+    check_rows(n_total, world, "the sharded bank")
+    t, p = make_template_batch(gen, n_total // world, psd, cfg, norm_constant)
+    if mesh is None:
+        return t, p
+    keys = ("m1", "m2", "mc", "eta", "M", "q", "idx")
+    # one gather: the idx column (< n_safe) is exact in float32
+    rows = mesh.gather_rows(torch.cat([t, torch.stack([p[k].to(t.dtype) for k in keys], -1)], -1))
+    params = {k: rows[:, cfg.n_out + i].contiguous() for i, k in enumerate(keys)}
+    params["idx"] = params["idx"].to(p["idx"].dtype)
+    return rows[:, : cfg.n_out].contiguous(), params

@@ -2,10 +2,12 @@
 
 A numpy copy of ``gennet_tpu.physics.detector``'s host geometry: GPS epochs
 (~1e9 s) lose ~64 s of precision in float32, so this is always evaluated on
-the host in float64 and folded into the device pipeline as scalars.
+the host in float64 and folded into the device pipeline as scalars. The
+frequency-domain time shifts at the end work on tensors.
 """
 
 import numpy as np
+import torch
 
 from gennet_tpu_torch.physics import constants
 
@@ -92,3 +94,21 @@ def time_delay_from_earth_center(gps_time, ra, dec, det: str = "H1"):
         axis=-1,
     )
     return -np.sum(loc * n, axis=-1) / constants.C_SI
+
+
+def fd_time_shift_phase(phase: torch.Tensor, dt_shift, T_obs: float) -> torch.Tensor:
+    """The time shift of h̃ = amp·e^{−iΨ} in its phase: delaying by
+    ``dt_shift`` seconds (batched over ``phase``'s leading axes) is
+    Ψ → Ψ + 2πf·Δt on the rfft grid."""
+    f = (torch.arange(phase.shape[-1], device=phase.device) / T_obs).to(phase.dtype)
+    dt = torch.as_tensor(dt_shift, dtype=phase.dtype, device=phase.device)
+    return phase + 2.0 * np.pi * f * dt[..., None]
+
+
+def fd_time_shift(htilde: torch.Tensor, dt_shift, T_obs: float) -> torch.Tensor:
+    """Delay a frequency-domain (rfft layout) series by ``dt_shift``
+    seconds through the exact phase ramp exp(−2πi f Δt); ``dt_shift``
+    broadcasts against ``htilde``'s leading axes."""
+    f = torch.arange(htilde.shape[-1], device=htilde.device, dtype=torch.float64) / T_obs
+    dt = torch.as_tensor(dt_shift, dtype=torch.float64, device=htilde.device)[..., None]
+    return htilde * torch.exp(-2j * np.pi * f * dt).to(htilde.dtype)

@@ -2,8 +2,11 @@
 
 Same curves as ``gennet_tpu.physics.psd`` (range-calibrated AdV P1200087
 scenarios and the aLIGO zero-detuning high-power fit), evaluated host-side
-in float64 numpy and returned as a float32 tensor in the framework's scaled
-strain units (× STRAIN_SCALE², see :mod:`.constants`).
+in float64 numpy, in the framework's scaled strain units (× STRAIN_SCALE²,
+see :mod:`.constants`). :func:`aligo_zdhp_psd` and :func:`advirgo_psd`
+return the curve in the dtype and on the device of the frequencies they
+are given; :func:`analytic_advligo_psd` builds the scenario PSD from them
+as a float32 tensor.
 """
 
 from functools import lru_cache
@@ -45,6 +48,47 @@ def bns_range_mpc(f: np.ndarray, psd_true: np.ndarray, rho0: float = 8.0,
     return float(d_h / _MPC_SI / 2.2643)
 
 
+def _host(f) -> np.ndarray:
+    return (f.detach().cpu().numpy() if torch.is_tensor(f) else np.asarray(f)).astype(np.float64)
+
+
+def _like(x: np.ndarray, f) -> torch.Tensor:
+    """``x`` in ``f``'s dtype and device (float32 on the CPU for an array)."""
+    if torch.is_tensor(f):
+        return torch.as_tensor(x, dtype=f.dtype if f.is_floating_point() else torch.float32,
+                               device=f.device)
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+def aligo_zdhp_psd(f) -> torch.Tensor:
+    """aLIGO zero-detuning high-power analytic PSD fit [arXiv:0903.0338] at
+    the frequencies ``f`` [Hz], in scaled strain units; bins where the fit
+    is not positive and finite (DC) are 0."""
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        x = _host(f) / 215.0
+        x = np.where(x > 0, x, np.inf)
+        psd = (1e-49 * STRAIN_SCALE**2) * (
+            x ** (-4.14) - 5.0 * x ** (-2) + 111.0 * (1.0 - x**2 + 0.5 * x**4) / (1.0 + 0.5 * x**2))
+        return _like(np.where(np.isfinite(psd) & (psd > 0), psd, 0.0), f)
+
+
+def advirgo_psd(f) -> torch.Tensor:
+    """Advanced Virgo design analytic PSD (the Manzotti-Dietz ASD fit,
+    squared) at the frequencies ``f`` [Hz], in scaled strain units; 0 at
+    DC."""
+    fh = _host(f)
+    return _like(np.where(fh > 0, (1.259e-24 * STRAIN_SCALE * _adv_asd_shape(fh)) ** 2, 0.0), f)
+
+
+def regularize_psd(psd: torch.Tensor, fs: float, T_obs: float, f_low: float = 10.0) -> torch.Tensor:
+    """Zero the sub-``f_low``, non-finite and non-positive bins of an
+    arbitrary PSD on the rfft grid (a measured one, say), so whitening is
+    well defined downstream."""
+    f = torch.as_tensor(rfft_freqs(fs, T_obs), device=psd.device)
+    good = torch.isfinite(psd) & (psd > 0) & (f >= f_low)
+    return torch.where(good, psd, torch.zeros_like(psd))
+
+
 def _adv_asd_shape(f: np.ndarray) -> np.ndarray:
     """Manzotti-Dietz AdV ASD shape (without its 1.259e-24 amplitude)."""
     x = np.log(np.where(f > 0, f, 1.0) / 300.0)
@@ -79,19 +123,15 @@ def analytic_advligo_psd(fs: float, T_obs: float, op: str = "AdvDesign", det: st
     if det not in ("H1", "L1", "V1"):
         raise ValueError(f"unknown detector {det!r}")
     f = rfft_freqs(fs, T_obs)
-    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
-        if op == "aLIGOZDHP":
-            x = f / 215.0
-            x = np.where(x > 0, x, np.inf)
-            psd = (1e-49 * STRAIN_SCALE**2) * (
-                x ** (-4.14) - 5.0 * x ** (-2) + 111.0 * (1.0 - x**2 + 0.5 * x**4) / (1.0 + 0.5 * x**2))
-            psd = np.where(np.isfinite(psd) & (psd > 0), psd, 0.0)
-        elif op in _SCENARIOS:
-            amp2, f_wall = _scenario_calibration(op)
+    f64 = torch.as_tensor(f, dtype=torch.float64)  # the curves in float64, as before
+    if op == "aLIGOZDHP":
+        psd = aligo_zdhp_psd(f64).numpy()
+    elif op in _SCENARIOS:
+        amp2, f_wall = _scenario_calibration(op)
+        with np.errstate(divide="ignore"):
             wall = 1.0 + (f_wall / np.where(f > 0, f, np.inf)) ** 8
-            psd = np.where(f > 0, (1.259e-24 * STRAIN_SCALE * _adv_asd_shape(f)) ** 2, 0.0)
-            psd = psd * (amp2 * wall)
-        else:
-            raise ValueError(f"unknown noise option {op!r}")
+        psd = advirgo_psd(f64).numpy() * (amp2 * wall)
+    else:
+        raise ValueError(f"unknown noise option {op!r}")
     psd = np.where(f >= f_low, psd, 0.0)
     return torch.as_tensor(psd, dtype=torch.float32, device=device)

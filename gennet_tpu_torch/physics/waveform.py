@@ -565,3 +565,58 @@ def imrphenomd_ampphase(freqs, m1, m2, chi1=0.0, chi2=0.0,
     if scalar:
         return amp[0], phase[0]
     return amp, phase
+
+
+def _polarisations(h, inclination):
+    """(h̃+, h̃×) of a complex h̃ seen at ``inclination``."""
+    cosi = math.cos(inclination)
+    return 0.5 * (1.0 + cosi**2) * h, cosi * h * complex(math.cos(PI / 2.0), -math.sin(PI / 2.0))
+
+
+def _complex_strain(amp, phase):
+    """amp·e^{−i·phase} in the complex dtype of ``amp``'s precision."""
+    return torch.polar(amp, -phase)
+
+
+def taylorf2_htilde(freqs, m1, m2, dist_mpc=constants.DEFAULT_DISTANCE_MPC,
+                    inclination=0.0, phi_ref=0.0, f_low=constants.DEFAULT_F_LOW, f_high=None):
+    """3.5PN TaylorF2 (h̃+, h̃×) on the frequency grid ``freqs`` [Hz]: the
+    inspiral-only SPA model, zeroed outside [f_low, f_high] (``f_high``
+    defaults to the ISCO). Masses and the result's shape as in
+    :func:`imrphenomd_ampphase`; complex64 (complex128 for float64
+    ``freqs``)."""
+    dtype = freqs.dtype if freqs.dtype == torch.float64 else torch.float32
+    freqs = freqs.to(dtype)
+    m1 = torch.as_tensor(m1, dtype=dtype, device=freqs.device)
+    m2 = torch.as_tensor(m2, dtype=dtype, device=freqs.device)
+    scalar = m1.ndim == 0 and m2.ndim == 0
+    m1, m2 = m1.reshape(-1, 1), m2.reshape(-1, 1)
+    m_sec = (m1 + m2) * constants.MTSUN_SI
+    eta = (m1 * m2) / (m1 + m2) ** 2
+    Mf = torch.clamp(freqs * m_sec, min=1e-9)
+    P = _MfPowers(Mf, Mf)
+
+    psi = _tf2_phase(Mf, eta, 0.0, 0.0, P) + 2.0 * phi_ref
+    amp0 = (constants.STRAIN_SCALE
+            * math.sqrt(5.0 / 24.0) / PI ** (2.0 / 3.0) * torch.sqrt(eta)
+            * m_sec**2 / (dist_mpc * constants.MPC_SI / constants.C_SI))
+    amp = amp0 * P.m_seven_sixths * _amp_pn_series(Mf, eta, 0.0, 0.0, P)
+    if f_high is None:
+        f_high = 1.0 / (6.0**1.5 * PI * m_sec)  # the ISCO: the inspiral model's end
+    band = (freqs >= f_low) & (freqs <= f_high)
+    h = torch.where(band, _complex_strain(amp, psi), torch.zeros((), dtype=amp.dtype,
+                                                                 device=amp.device))
+    hp, hc = _polarisations(h, inclination)
+    return (hp[0], hc[0]) if scalar else (hp, hc)
+
+
+def imrphenomd_htilde(freqs, m1, m2, chi1=0.0, chi2=0.0,
+                      dist_mpc=constants.DEFAULT_DISTANCE_MPC, inclination=0.0, phi_ref=0.0,
+                      f_low=constants.DEFAULT_F_LOW, f_high=None):
+    """IMRPhenomD (h̃+, h̃×) as complex tensors: :func:`imrphenomd_ampphase`
+    as h̃ = amp·e^{−i(phase + 2φ_ref)} seen at ``inclination``. For
+    validation and interop; the bank's pipeline uses the (amp, phase)
+    form."""
+    amp, phase = imrphenomd_ampphase(freqs, m1, m2, chi1, chi2, dist_mpc=dist_mpc, f_low=f_low,
+                                     f_high=f_high)
+    return _polarisations(_complex_strain(amp, phase + 2.0 * phi_ref), inclination)

@@ -4,6 +4,7 @@ both packages fold the same numbers.
 """
 
 import numpy as np
+import torch
 
 
 def tukey_np(M: int, alpha: float = 0.5) -> np.ndarray:
@@ -36,3 +37,9 @@ def centered_tukey_window_np(N: int, safe: int = 2, alpha: float = 1.0 / 8.0) ->
     start = int((N - tempwin.size) / 2)
     w[start : start + tempwin.size] = tempwin
     return w
+
+
+def tukey(M: int, alpha: float = 0.5, dtype: torch.dtype = torch.float32,
+          device=None) -> torch.Tensor:
+    """:func:`tukey_np` as a tensor of ``dtype`` on ``device``."""
+    return torch.as_tensor(tukey_np(M, alpha), dtype=dtype, device=device)

@@ -13,6 +13,14 @@ Posterior snapshots are byte-compatible with the JAX package's
 The JAX package's orbax checkpoints are not read: orbax imports JAX
 (ROADMAP queue 1 #7). A directory that holds them is refused rather than
 read as empty.
+
+Under a data-parallel mesh every rank calls :meth:`CheckpointManager.save`:
+the ranks' ``extra`` dicts (their generator states) are gathered by rank,
+rank 0 writes the file, and a barrier holds the other ranks until it is
+there. :meth:`~CheckpointManager.restore` hands each rank its own
+``extra``. A checkpoint records the world size that wrote it, and a
+restore at another world size is refused, unless the caller asks for the
+state alone (the CNN cache, which the reference shares across mesh sizes).
 """
 
 import os
@@ -20,6 +28,8 @@ from dataclasses import fields, is_dataclass
 
 import numpy as np
 import torch
+
+from gennet_tpu_torch.train.mesh import DataMesh
 
 
 def state_dict_of(state) -> dict:
@@ -62,11 +72,13 @@ def _load_into(state, saved: dict):
 
 class CheckpointManager:
     """Writes ``<directory>/ckpt_<step>.pt``, keeps the newest
-    ``max_to_keep`` and restores the newest or a given step."""
+    ``max_to_keep`` and restores the newest or a given step; ``mesh``: the
+    data-parallel world whose ranks save and restore together."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, mesh: DataMesh | None = None):
         self._dir = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.mesh = mesh
         os.makedirs(self._dir, exist_ok=True)
 
     def all_steps(self) -> list:
@@ -87,24 +99,44 @@ class CheckpointManager:
 
     def save(self, step: int, state, extra: dict | None = None):
         """``state``: a training-state dataclass or a :func:`state_dict_of`
-        dict of one."""
-        payload = {"step": step, "state": state_dict_of(state) if is_dataclass(state) else state,
-                   "extra": extra}
-        path = os.path.join(self._dir, f"ckpt_{step}.pt")
-        torch.save(payload, path + ".tmp")
-        os.replace(path + ".tmp", path)
-        for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(os.path.join(self._dir, f"ckpt_{old}.pt"))
+        dict of one (read on rank 0 only). Under a mesh every rank calls
+        this with its own ``extra``."""
+        mesh = self.mesh
+        ranks = [extra] if mesh is None else mesh.gather_objects(extra)
+        if mesh is None or mesh.is_main:
+            payload = {"step": step,
+                       "state": state_dict_of(state) if is_dataclass(state) else state,
+                       "extra": extra, "world": len(ranks), "rank_extra": ranks}
+            path = os.path.join(self._dir, f"ckpt_{step}.pt")
+            torch.save(payload, path + ".tmp")
+            os.replace(path + ".tmp", path)
+            for old in self.all_steps()[:-self.max_to_keep]:
+                os.remove(os.path.join(self._dir, f"ckpt_{old}.pt"))
+        if mesh is not None:
+            mesh.barrier()
 
-    def restore(self, state, step: int | None = None):
+    def restore(self, state, step: int | None = None, *, any_world: bool = False):
         """Load the newest checkpoint (or ``step``) into ``state`` in place.
-        Returns (state, extra), or (None, None) when there is none."""
+        Returns (state, this rank's extra), or (None, None) when there is
+        none. Raises ``ValueError`` for a checkpoint written at another
+        world size: its generator states are one per rank. With
+        ``any_world=True`` such a checkpoint restores without its extra
+        (None is returned for it): the state is the same on every rank."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None, None
-        payload = torch.load(os.path.join(self._dir, f"ckpt_{step}.pt"), map_location="cpu",
-                             weights_only=True)
-        return _load_into(state, payload["state"]), payload["extra"]
+        path = os.path.join(self._dir, f"ckpt_{step}.pt")
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        world, rank = (1, 0) if self.mesh is None else (self.mesh.world, self.mesh.rank)
+        saved = payload.get("world", 1)
+        if saved != world:
+            if any_world:
+                return _load_into(state, payload["state"]), None
+            raise ValueError(f"{path} was written by a data-parallel world of {saved} ranks; "
+                             f"restoring it at a world of {world} is refused: it holds one "
+                             f"generator state per rank of that world")
+        extra = payload["rank_extra"][rank] if "rank_extra" in payload else payload["extra"]
+        return _load_into(state, payload["state"]), extra
 
 
 def save_posterior_snapshot(directory: str, step: int, samples: np.ndarray):

@@ -9,6 +9,9 @@ The state owns its module and updates it in place, so the step functions
 take no separate ``model`` argument. Randomness comes from an explicit
 ``torch.Generator``; :func:`draw_cnn_batch` consumes all of it, so a batch
 made elsewhere (e.g. with numpy) drives :func:`cnn_update` unchanged.
+With a :class:`~gennet_tpu_torch.train.mesh.DataMesh` the update is the
+reference's data-parallel step: gradients and the loss averaged across the
+ranks, BatchNorm's running statistics averaged after the step.
 """
 
 import math
@@ -19,6 +22,7 @@ from torch import nn
 
 from gennet_tpu_torch.models.layers import reset_module
 from gennet_tpu_torch.train import losses as L
+from gennet_tpu_torch.train.mesh import DataMesh, running_stats
 
 
 @dataclass(frozen=True)
@@ -116,9 +120,10 @@ def ema_update(ema: dict, model: nn.Module, decay: float):
 
 
 def cnn_update(state: CNNState, x: torch.Tensor, y: torch.Tensor, *, cfg: CNNConfig,
-               gen: torch.Generator | None = None):
+               gen: torch.Generator | None = None, mesh: DataMesh | None = None):
     """One MSE update on a materialised batch, in place; a model with
-    dropout (``CombinedPE``) draws its mask from ``gen``. Returns
+    dropout (``CombinedPE``) draws its mask from ``gen``; ``mesh``: this
+    rank's batch is its share of a data-parallel step. Returns
     (state, {"pe_loss": 0-d tensor})."""
     model = state.model
     if cfg.ema_decay > 0.0 and state.ema is None:
@@ -126,20 +131,27 @@ def cnn_update(state: CNNState, x: torch.Tensor, y: torch.Tensor, *, cfg: CNNCon
     state.opt.zero_grad(set_to_none=True)
     loss = L.mse_multi_output(model(x, train=True, gen=gen), y)
     loss.backward()
+    loss = loss.detach()
+    if mesh is not None:
+        mesh.pmean_([p.grad for p in model.parameters()] + [loss])
     state.opt.step()
     if state.sched is not None:
         state.sched.step()
+    if mesh is not None:
+        mesh.pmean_(running_stats(model))
     if cfg.ema_decay > 0.0:
         ema_update(state.ema, model, cfg.ema_decay)
     state.step += 1
-    return state, {"pe_loss": loss.detach()}
+    return state, {"pe_loss": loss}
 
 
 def cnn_step(state: CNNState, bank: torch.Tensor, targets: torch.Tensor, gen: torch.Generator,
-             *, cfg: CNNConfig):
-    """One CNN PE iteration: draw a batch, then update."""
+             *, cfg: CNNConfig, mesh: DataMesh | None = None):
+    """One CNN PE iteration: draw a batch, then update. Under a ``mesh``,
+    ``bank`` and ``targets`` are this rank's block of rows and ``gen`` its
+    stream."""
     x, y = draw_cnn_batch(gen, bank, targets, cfg)
-    return cnn_update(state, x, y, cfg=cfg, gen=gen)
+    return cnn_update(state, x, y, cfg=cfg, gen=gen, mesh=mesh)
 
 
 def predict(state: CNNState, x: torch.Tensor, chunk: int = 512, use_ema: bool = False):

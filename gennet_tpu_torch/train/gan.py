@@ -13,6 +13,14 @@ The state owns its modules and optimisers and is updated in place.
 :func:`draw_gan_batch` consumes all of an iteration's randomness into a
 :class:`GANBatch`, so a batch made elsewhere (e.g. with numpy) drives
 :func:`gan_update` unchanged. Dropout masks come from ``GANBatch.gen``.
+
+With a :class:`~gennet_tpu_torch.train.mesh.DataMesh` the update is the
+reference's data-parallel step (``make_gan_step(mesh=...)``): each rank
+runs its own batch, the gradients of D, of the residual route and of each
+G step are averaged across the ranks before their Adam step, ``d_acc`` is
+averaged before the balance gate (so every rank takes the same branch),
+the losses are rank means, BatchNorm normalises each rank's batch with its
+own statistics, and the running statistics are averaged after the step.
 """
 
 from dataclasses import dataclass
@@ -23,6 +31,7 @@ from torch import nn
 from gennet_tpu_torch.models.layers import reset_module
 from gennet_tpu_torch.train import losses as L
 from gennet_tpu_torch.train.cnn import adam, ema_update, param_copy
+from gennet_tpu_torch.train.mesh import DataMesh, running_stats
 
 
 @dataclass(frozen=True)
@@ -184,10 +193,11 @@ def _grad_norm(module: nn.Module) -> torch.Tensor:
 
 
 def gan_update(state: GANState, batch: GANBatch, measured: torch.Tensor,
-               knobs: GANKnobs | None = None, *, cfg: GANConfig):
+               knobs: GANKnobs | None = None, *, cfg: GANConfig, mesh: DataMesh | None = None):
     """The deterministic half of an iteration, in place: the D update (held
     back, Adam state included, while d_acc ≥ the gate), the residual route
-    (``cfg.residual_route``), then the adversarial G update(s).
+    (``cfg.residual_route``), then the adversarial G update(s). ``mesh``:
+    this rank's batch is its share of a data-parallel step.
     Returns (state, metrics dict of 0-d tensors)."""
     if knobs is None:
         knobs = knobs_from_cfg(cfg)
@@ -226,6 +236,9 @@ def gan_update(state: GANState, batch: GANBatch, measured: torch.Tensor,
     d_acc = 0.5 * (L.binary_accuracy(lr_.detach(), 1.0) + L.binary_accuracy(lf_.detach(), 0.0))
     state.d_opt.zero_grad(set_to_none=True)
     d_loss.backward()
+    d_loss = d_loss.detach()
+    if mesh is not None:
+        mesh.pmean_([p.grad for p in D.parameters()] + [d_loss, d_acc])
     probes = {}
     if cfg.debug_probes:
         probes["d_grad_norm"] = _grad_norm(D)
@@ -252,10 +265,12 @@ def gan_update(state: GANState, batch: GANBatch, measured: torch.Tensor,
         res_loss = knobs.res_loss_weight * rl
         state.g_res_opt.zero_grad(set_to_none=True)
         res_loss.backward()
+        res_loss = res_loss.detach()
+        if mesh is not None:
+            mesh.pmean_([p.grad for p in G.parameters()] + [res_loss])
         if cfg.debug_probes:
             probes["res_grad_norm"] = _grad_norm(G)
         state.g_res_opt.step()
-        res_loss = res_loss.detach()
 
     # ---------------- generator adversarial step(s) ---------------------
     D.requires_grad_(False)
@@ -286,16 +301,21 @@ def gan_update(state: GANState, batch: GANBatch, measured: torch.Tensor,
             g_acc = L.binary_accuracy(logits.detach(), 1.0)
             state.g_opt.zero_grad(set_to_none=True)
             g_loss.backward()
+            g_loss = g_loss.detach()
+            if mesh is not None:
+                mesh.pmean_([p.grad for p in G.parameters()] + [g_loss, g_acc])
             if cfg.debug_probes:
                 probes["g_grad_norm"] = _grad_norm(G)
             state.g_opt.step()
     finally:
         D.requires_grad_(True)
 
+    if mesh is not None:
+        mesh.pmean_(running_stats(G, D))
     if cfg.g_ema_decay > 0.0:
         ema_update(state.g_ema, G, cfg.g_ema_decay)
     state.step += 1
-    metrics = {"d_loss": d_loss.detach(), "d_acc": d_acc, "g_loss": g_loss.detach(),
+    metrics = {"d_loss": d_loss, "d_acc": d_acc, "g_loss": g_loss,
                "g_acc": g_acc, "res_loss": res_loss}
     if cfg.debug_probes:
         # route-separated gradient norms, state norms and activation
@@ -317,10 +337,11 @@ def gan_update(state: GANState, batch: GANBatch, measured: torch.Tensor,
 
 
 def gan_step(state: GANState, bank: torch.Tensor, measured: torch.Tensor, gen: torch.Generator,
-             knobs: GANKnobs | None = None, *, cfg: GANConfig):
-    """One full alternating GAN iteration (draw, then update)."""
+             knobs: GANKnobs | None = None, *, cfg: GANConfig, mesh: DataMesh | None = None):
+    """One full alternating GAN iteration (draw, then update). Under a
+    ``mesh``, ``bank`` is this rank's block of rows and ``gen`` its stream."""
     batch = draw_gan_batch(gen, bank, cfg)
-    return gan_update(state, batch, measured, knobs, cfg=cfg)
+    return gan_update(state, batch, measured, knobs, cfg=cfg, mesh=mesh)
 
 
 def sample_generator(generator: nn.Module, state: GANState, gen: torch.Generator, n: int,

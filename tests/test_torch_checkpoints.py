@@ -12,6 +12,9 @@
 - A PE saved with its cosine schedule restores into the schedule-free PE
   that ``train-gan`` and ``sample-posterior`` build. The reference cannot:
   its orbax restore of the same pair of states raises (ROADMAP queue 3).
+- A checkpoint of a data-parallel world of 2 restores at a world of 1
+  only without its per-rank generator states (the CNN cache): asked for
+  them, the restore is refused by name.
 - Posterior snapshots read the same in both packages.
 """
 
@@ -206,6 +209,37 @@ def test_scheduled_pe_restores_into_the_schedule_free_pe(tmp_path):
         assert torch.equal(state.ema[k], fresh.ema[k]), k
     x = bank[:8, :, None]
     assert torch.equal(tcnn.predict(state, x, use_ema=True), tcnn.predict(fresh, x, use_ema=True))
+
+
+class _World2Rank0:
+    """Rank 0 of a world of 2 as the manager's save sees it: rank 1's extra
+    is this rank's with another generator state."""
+
+    world, rank, is_main = 2, 0, True
+
+    def gather_objects(self, extra):
+        return [extra, {"gen": torch.Generator().manual_seed(9).get_state()}]
+
+    def barrier(self):
+        pass
+
+
+@pytest.mark.parametrize("any_world", [False, True])
+def test_a_world2_checkpoint_at_world1(tmp_path, any_world):
+    state, _ = _pe()
+    state.step = 7
+    CheckpointManager(str(tmp_path / "c"), mesh=_World2Rank0()).save(
+        7, state, extra={"gen": torch.Generator().manual_seed(5).get_state()})
+    fresh, _ = _pe()
+    mgr = CheckpointManager(str(tmp_path / "c"))
+    if not any_world:
+        with pytest.raises(ValueError, match="world of 2 ranks.*world of 1 is refused"):
+            mgr.restore(fresh)
+        assert fresh.step == 0
+        return
+    restored, extra = mgr.restore(fresh, any_world=True)
+    assert restored is fresh and extra is None
+    _assert_equal_states(fresh, state)
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])

@@ -143,16 +143,34 @@ def test_burst_config_keeps_every_reference_field_and_default():
 
 @pytest.mark.parametrize("argv,exc,match", [
     (["smoke", "--plots", "false", "--device", "cuda"], RuntimeError, "cuda"),
-    (["smoke", "--plots", "false", "--device", "cpu", "--data-parallel"], NotImplementedError,
-     "queue 1 #11"),
+    # --data-parallel runs (at a world of 1); the case keeps the id it had
+    # while the flag was refused
+    pytest.param(["smoke", "--plots", "false", "--device", "cpu", "--data-parallel"], None, None,
+                 id="argv1-NotImplementedError-queue 1 #11"),
 ])
-def test_smoke_cli_refuses(argv, exc, match):
+def test_smoke_cli_refuses(tmp_path, argv, exc, match):
     if "cuda" in argv and torch.cuda.is_available():
         pytest.skip("checks the refusal on a machine without a CUDA card")
     from gennet_tpu_torch.cli.main import main
 
+    if exc is None:
+        _smoke_data_parallel_at_world1_equals_the_plain_run(main, tmp_path)
+        return
     with pytest.raises(exc, match=match):
         main(argv)
+
+
+def _smoke_data_parallel_at_world1_equals_the_plain_run(main, tmp_path):
+    # one process, no torchrun: a world of 1, bit for bit the run without
+    # the flag (tests/test_torch_workload_dp.py runs a world of 2)
+    argv = ["smoke", "--plots", "false", "--device", "cpu", "--n-pix", "128", "--n-signals",
+            "512", "--gan-iters", "2", "--pe-iters", "2", "--cadence", "1", "--batch-size", "8",
+            "--n-posterior", "32", "--pe-grain", "21", "--gan-restarts", "0"]
+    outs = [main([*argv, "--out-dir", str(tmp_path / d), *extra])
+            for d, extra in (("plain", []), ("dp", ["--data-parallel"]))]
+    assert json.dumps(outs[0]) == json.dumps(outs[1])
+    rows = [(tmp_path / d / "burst_metrics.jsonl").read_text() for d in ("plain", "dp")]
+    assert rows[0] == rows[1] and rows[0]
 
 
 # ------------------------------------------------------- train-bbh options

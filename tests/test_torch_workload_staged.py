@@ -336,17 +336,41 @@ def test_make_bank_with_lalinf_dir_uses_the_products(tmp_path, products):
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["make-bank", "--device", "cpu", "--data-parallel"], NotImplementedError, "queue 1 #11"),
-    (["train-gan", "--device", "cpu", "--data-parallel"], NotImplementedError, "queue 1 #11"),
+    # --data-parallel runs (at a world of 1); these cases keep the ids they
+    # had while the flag was refused
+    pytest.param(["make-bank", "--device", "cpu", "--data-parallel"], None, None,
+                 id="argv0-NotImplementedError-queue 1 #11"),
+    pytest.param(["train-gan", "--device", "cpu", "--data-parallel"], None, None,
+                 id="argv1-NotImplementedError-queue 1 #11"),
     (["make-bank", "--device", "cuda"], RuntimeError, "cuda"),
     (["sample-posterior", "--device", "cuda"], RuntimeError, "cuda"),
 ])
 def test_new_subcommands_refuse(tmp_path, argv, exc, match):
+    if exc is None:
+        _run_data_parallel_at_world1(tmp_path, argv[0])
+        return
     if "cuda" in argv and torch.cuda.is_available():
         pytest.skip("checks the refusal on a machine without a CUDA card")
     with pytest.raises(exc, match=match):
         cli([*argv, "-b" if argv[0] == "make-bank" else "--out-dir", str(tmp_path / "x")])
     assert not (tmp_path / "x").exists()
+
+
+def _run_data_parallel_at_world1(tmp_path, cmd):
+    # one process, no torchrun: a world of 1. train-gan equals the run
+    # without the flag bit for bit; make-bank writes the sharded bank (one
+    # synthesis of -N rows, no event twin), as the reference's does
+    if cmd == "make-bank":
+        out = cli(["make-bank", "--device", "cpu", "-N", "6", "-f", "256", "-b",
+                   str(tmp_path / "b.gntb"), "--data-parallel"])
+        assert out == {"templates": 6, "file": str(tmp_path / "b.gntb")}
+        return
+    cfg = dict(TINY, pe_iters=0, eval_cadence=100, ckpt_every=100)
+    outs = [cli(["train-gan", *_argv(dict(cfg, out_dir=str(tmp_path / d))), *extra])
+            for d, extra in (("plain", []), ("dp", ["--data-parallel"]))]
+    assert json.dumps(outs[0]) == json.dumps(outs[1])
+    a, b = (_payload(str(tmp_path / d), "ckpt_gan", 4) for d in ("plain", "dp"))
+    _assert_same(a, b)
 
 
 # ---------------------------------------------------- lalinference products
