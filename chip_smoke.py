@@ -76,12 +76,33 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    states equal after every step; finite losses; 25 conv launches a step
    and no phasor launch per rank); and ``make-mdc -n 100`` (the XML read
    back, 200 ASCII files);
-13. throughput (information): bank templates/s, PE steps/s, GAN steps/s
+13. slice 8, the variant generations: whether cuDNN's backward of a 5 × 5
+   2-D conv repeats bit for bit under its default algorithms (information)
+   and under the deterministic ones ``runtime.setup`` pins (a check);
+   ``blob-toy`` through the CLI at the reference's widths (n_pix 28,
+   10,000 signals, batch 64, 1000 MC draws; 400 PE, 400 MC-dropout PE and
+   400 GAN steps) and the same with ``--data-parallel`` at world 1
+   (bitwise equal: summary and rows);
+   ``image-gan`` (n_pix 32, batch 32, 200 steps) over the committed JPEGs
+   when PIL imports, else the JPEG glob refused by name before any device
+   work and a run over 16 seeded 64 × 64 P5 files; the softmax GAN (n_out
+   512, batch 32; pretrain and 100 steps, with and without
+   ``subtract_ht``), the denoiser GAN (n_out 50, 100 steps),
+   ``train_autoencoder`` (100 epochs) and ``run_two_stage`` on the burst
+   networks (n_pix 512, batch 64, 20 + 20 + 20), all losses finite;
+   ``profile_trace`` around 5 image-GAN steps (a non-empty trace) and
+   ``debug_nans`` raising on a NaN gradient; 0 launches of either kernel
+   (the variant models are cuDNN and cuBLAS, as the reference's are
+   ``nn.Conv``/``nn.Dense``); each stage's wall time and each loop's
+   steps/s;
+14. throughput (information): bank templates/s, PE steps/s, GAN steps/s
    with ``conv_impl`` xla and pallas in turns, each kernel's launches per
    GAN step and per synthesis, the burst PE and GAN steps/s, and (slice 6)
    GAN steps/s and the wall time of a 4000-draw posterior, bf16 against
    float32 under both implementations, in turns, three runs a side, with
-   the conv kernel's launches per step and per draw in both dtypes.
+   the conv kernel's launches per step and per draw in both dtypes, and
+   the GAN steps/s of the flagship (``xla``), burst and image GANs under
+   cuDNN's deterministic algorithms against its defaults, in turns.
 
 Every timed kernel call prints its bound: the larger of its operations
 over 165 TFLOP/s (the 3xTF32 ceiling: 495 TFLOP/s of TF32 over three
@@ -861,6 +882,243 @@ def slice7(cli_main, P, CV, build, card, make_bank_5_s) -> tuple:
     return launches, bank_err
 
 
+def _write_pgm_set(d: str, n: int = 16, side: int = 64, seed: int = 0):
+    """``n`` seeded side × side binary PGM (P5, 8-bit) images in ``d``:
+    smooth blobs on noise, so the GAN has structure to learn."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:side, 0:side] / side
+    for i in range(n):
+        cy, cx = rng.uniform(0.25, 0.75, 2)
+        img = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 0.02)
+        img = img + 0.2 * rng.uniform(size=(side, side))
+        px = np.round(255 * img / img.max()).astype(np.uint8)
+        with open(os.path.join(d, f"img{i:02d}.pgm"), "wb") as f:
+            f.write(f"P5\n{side} {side}\n255\n".encode() + px.tobytes())
+
+
+def slice8(cli_main, P, CV, build, card) -> tuple:
+    """The variant generations at the reference's widths (slice 8):
+    ``blob-toy`` through the CLI (n_pix 28, 10,000 signals, batch 64, 1000
+    MC draws, 400 + 400 + 400 steps), then the same with
+    ``--data-parallel`` at world 1, which must equal it bit for bit;
+    ``image-gan`` (n_pix 32, batch 32, 200 steps) over the committed JPEGs
+    when PIL imports, else the JPEG glob refused before any device work and
+    a run over 16 seeded 64 × 64 P5 files; the softmax GAN (n_out 512,
+    latent 10, batch 32: one ``pretrain_discriminator`` and 100 steps,
+    with and without ``subtract_ht``), the denoiser GAN (n_out 50, batch
+    32, 100 steps), ``train_autoencoder`` (100 epochs) and
+    ``run_two_stage`` on the burst networks (n_pix 512, batch 64, 20 + 20 +
+    20); ``profile_trace`` around 5 image-GAN steps and ``debug_nans`` on a
+    NaN in a backward pass. Neither kernel may launch. Returns ((phasor,
+    conv) launches, {stage: wall s}, {loop: steps/s})."""
+    import dataclasses
+    import glob
+    import importlib.util
+
+    import torch
+
+    from gennet_tpu_torch.models import (BurstDiscriminator, BurstGenerator, DenseGenerator,
+                                         SoftmaxDiscriminator)
+    from gennet_tpu_torch.models.image_models import FlatImageDiscriminator, FlatImageGenerator
+    from gennet_tpu_torch.physics import toys
+    from gennet_tpu_torch.physics.burst import make_burst_bank
+    from gennet_tpu_torch.train import denoise_variants as DV
+    from gennet_tpu_torch.train import softmax_gan as SG
+    from gennet_tpu_torch.train import two_stage as TS
+    from gennet_tpu_torch.train.gan import GANConfig, gan_step, init_gan
+    from gennet_tpu_torch.train.metrics import debug_nans, profile_trace
+
+    dev = torch.device("cuda")
+    walls, rates = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    def finite(what, metrics):
+        vals = {k: float(v) for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in vals.values()):
+            fail(f"slice 8: {what}: non-finite losses {vals}")
+        return vals
+
+    # cuDNN's default backward of a 5 x 5 2-D conv (the image models' first
+    # layer at batch 64) against its deterministic algorithms, which
+    # runtime.setup pins: three calls each
+    def conv2d_grads():
+        x = torch.randn((64, 1, 28, 28), generator=torch.Generator(dev).manual_seed(0),
+                        device=dev, requires_grad=True)
+        w = torch.randn((64, 1, 5, 5), generator=torch.Generator(dev).manual_seed(1),
+                        device=dev, requires_grad=True)
+        y = torch.nn.functional.conv2d(torch.nn.functional.pad(x, (2, 2, 2, 2)), w)
+        return torch.autograd.grad(torch.tanh(y).sum(), (x, w))
+
+    repeatable = {}
+    for det in (False, True):
+        torch.backends.cudnn.deterministic = det
+        runs = [conv2d_grads() for _ in range(3)]
+        repeatable[det] = all(torch.equal(a, b) for r in runs[1:] for a, b in zip(runs[0], r))
+    print(f"slice 8: conv2d 1 -> 64 (5 x 5, 28 x 28, batch 64) backward bitwise repeatable over "
+          f"3 calls: cuDNN's default algorithms {repeatable[False]}, deterministic ones "
+          f"{repeatable[True]} [{card}]")
+    if not repeatable[True]:
+        fail("slice 8: cuDNN's deterministic conv2d backward differs between calls")
+
+    P.LAUNCHES = CV.LAUNCHES = 0
+    # ---- blob-toy, plain and --data-parallel at world 1 ---------------------
+    blob = ["blob-toy", "--device", "cuda", "--pe-iters", "400", "--mc-pe-iters", "400",
+            "--gan-iters", "400", "--cadence", "200", "--plots", "false"]
+    runs = {}
+    for tag, extra in (("plain", []), ("--data-parallel", ["--data-parallel"])):
+        with tempfile.TemporaryDirectory(dir=build) as d:
+            out = timed(f"blob-toy {tag}", lambda: cli_main(blob + ["--out-dir", d] + extra))
+            runs[tag] = (out, read_rows(os.path.join(d, "blob_metrics.jsonl")))
+    out, rows = runs["plain"]
+    if not (all(math.isfinite(x) for x in out["pe_rms"]) and 0.0 <= out["mc_overlap"] <= 1.0
+            and math.isfinite(out["gan_d_loss"])):
+        fail(f"slice 8: blob-toy summary {out}")
+    steps = {key: [r["step"] for r in rows if key in r] for key in ("pe_loss", "mc_pe_loss",
+                                                                      "d_loss")}
+    if steps != {"pe_loss": [200], "mc_pe_loss": [200], "d_loss": [200]}:
+        fail(f"slice 8: blob-toy metric rows at steps {steps}, expected 200 for each phase")
+    if runs["plain"] != runs["--data-parallel"]:
+        fail(f"slice 8: blob-toy --data-parallel at world 1 differs from the plain run: "
+             f"{runs['--data-parallel'][0]} against {out}")
+    print(f"slice 8: blob-toy (n_pix 28, 10,000 signals, batch 64, 1000 MC draws, 400 PE, 400 "
+          f"MC-dropout PE and 400 GAN steps) {walls['blob-toy plain']:.1f} s, with "
+          f"--data-parallel at world 1 {walls['blob-toy --data-parallel']:.1f} s, bitwise equal "
+          f"(summary and {len(rows)} rows): " + json.dumps(out) + f" [{card}]")
+
+    # ---- image-gan ------------------------------------------------------------
+    img = ["image-gan", "--device", "cuda", "--n-pix", "32", "--batch-size", "32",
+           "--gan-iters", "200", "--cadence", "100", "--plots", "false"]
+    jpegs = os.path.join(REPO, "tests", "data", "images", "*.jpg")
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        if importlib.util.find_spec("PIL") is not None:
+            reader, pattern = "PIL over the committed JPEGs", jpegs
+        else:
+            reader, pattern = "the numpy P5 reader over 16 seeded 64 x 64 PGM files", \
+                os.path.join(d, "pgm", "*.pgm")
+            refused_dir = os.path.join(d, "refused")
+            mem = torch.cuda.memory_allocated()
+            try:
+                cli_main(img + ["--image-glob", jpegs, "--out-dir", refused_dir])
+                fail("slice 8: image-gan read the JPEGs with neither PIL nor matplotlib")
+            except ImportError as e:
+                if "PIL" not in str(e):
+                    fail(f"slice 8: image-gan's refusal does not name PIL: {e}")
+                print(f"slice 8: without PIL, image-gan refuses the JPEG glob: {e}")
+            if os.path.exists(refused_dir) or torch.cuda.memory_allocated() != mem:
+                fail("slice 8: image-gan did device or file work before refusing the JPEGs")
+            os.makedirs(os.path.dirname(pattern))
+            _write_pgm_set(os.path.dirname(pattern))
+        out = timed("image-gan", lambda: cli_main(img + ["--image-glob", pattern,
+                                                        "--out-dir", os.path.join(d, "run")]))
+        n_rows = len(read_rows(os.path.join(d, "run", "image_gan_metrics.jsonl")))
+    if not (out["n_images"] == 32 and math.isfinite(out["gan_d_loss"])
+            and math.isfinite(out["gan_g_loss"]) and -1.0 <= out["recovery_corr"] <= 1.0):
+        fail(f"slice 8: image-gan summary {out}")
+    print(f"slice 8: image-gan (n_pix 32, batch 32, 200 steps, {n_rows} rows) read by {reader}: "
+          f"{walls['image-gan']:.1f} s, " + json.dumps(out) + f" [{card}]")
+
+    # ---- the trainers at their reference widths --------------------------------
+    g = torch.Generator(device=dev).manual_seed(8)
+    sg_cfg = SG.SoftmaxGANConfig()
+    measured = toys.gauss_pulse(g, 1)[0] + 0.1 * torch.randn(512, generator=g, device=dev)
+    for sub in (False, True):
+        cfg = dataclasses.replace(sg_cfg, subtract_ht=sub)
+        tag = "softmax GAN" + (" subtract_ht" if sub else "")
+        st = SG.init_softmax_gan(torch.Generator().manual_seed(0), DenseGenerator(),
+                                 SoftmaxDiscriminator(), cfg, dev)
+        st, m = SG.pretrain_discriminator(st, toys.gauss_pulse(g, 32), g, cfg=cfg,
+                                          measured=measured)
+        finite(f"{tag} pretrain", m)
+
+        def loop():
+            out = None
+            for _ in range(100):
+                out = SG.softmax_gan_step(st, toys.gauss_pulse(g, 32), g, cfg=cfg,
+                                          measured=measured)[1]
+            return out
+
+        m = finite(tag, timed(tag, loop))
+        rates[tag] = 100 / walls[tag]
+        print(f"slice 8: {tag} (n_out 512, latent 10, batch 32): pretrain + 100 steps, "
+              f"{rates[tag]:.1f} steps/s, last {m} [{card}]")
+    dn_cfg = DV.DenoiserGANConfig()
+    st = DV.init_denoiser_gan(torch.Generator().manual_seed(0), DV.DenoiserGenerator(),
+                              SoftmaxDiscriminator(n_pix=50), dn_cfg, dev)
+
+    def dn_loop():
+        out = None
+        for _ in range(100):
+            out = DV.denoiser_gan_step(st, toys.sample_sinusoids(g, 32), g, cfg=dn_cfg)[1]
+        return out
+
+    m = finite("denoiser GAN", timed("denoiser GAN", dn_loop))
+    rates["denoiser GAN"] = 100 / walls["denoiser GAN"]
+    _, ae_loss = timed("train_autoencoder", lambda: DV.train_autoencoder(
+        torch.Generator().manual_seed(1), DV.SignalAutoencoder(), toys.sample_sinusoids(g, 1024),
+        epochs=100))
+    finite("train_autoencoder", {"loss": ae_loss})
+    rates["train_autoencoder"] = 100 / walls["train_autoencoder"]
+    print(f"slice 8: denoiser GAN (n_out 50, batch 32) {rates['denoiser GAN']:.1f} steps/s, last "
+          f"{m}; train_autoencoder 100 epochs {walls['train_autoencoder']:.2f} s, loss "
+          f"{ae_loss:.4f} [{card}]")
+    bank, _ = make_burst_bank(g, 4096, N=512)
+    b_meas = bank[0] + 0.25 * torch.randn(512, generator=g, device=dev)
+    st, m = timed("run_two_stage", lambda: TS.run_two_stage(
+        0, BurstGenerator(), BurstDiscriminator(), bank, b_meas,
+        GANConfig(n_pix=512, batch_size=64, pair_discriminator=False),
+        stage1_iters=20, stage2_iters=20, stage3_iters=20))
+    m = finite("run_two_stage", m)
+    rates["run_two_stage"] = 60 / walls["run_two_stage"]
+    print(f"slice 8: run_two_stage (BurstGenerator, BurstDiscriminator, n_pix 512, batch 64, "
+          f"20 + 20 + 20) {walls['run_two_stage']:.1f} s, last {m} [{card}]")
+
+    # ---- profile_trace and debug_nans -------------------------------------------
+    i_cfg = GANConfig(n_pix=1024, batch_size=32, lr=2e-4, n_sig=0.3, pair_discriminator=False,
+                      residual_route=True)
+    i_state = init_gan(torch.Generator().manual_seed(1), FlatImageGenerator(32),
+                       FlatImageDiscriminator(32), i_cfg, dev)
+    i_bank = 2 * torch.rand((64, 1024), generator=g, device=dev) - 1
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        with profile_trace(d):
+            for _ in range(5):
+                gan_step(i_state, i_bank, i_bank[0], g, cfg=i_cfg)
+            torch.cuda.synchronize()
+        traces = glob.glob(os.path.join(d, "trace_*.json"))
+        if len(traces) != 1 or os.path.getsize(traces[0]) == 0:
+            fail(f"slice 8: profile_trace wrote {traces}")
+        with open(traces[0]) as f:
+            events = json.load(f).get("traceEvents", [])
+        n_kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        print(f"slice 8: profile_trace of 5 image-GAN steps wrote {os.path.getsize(traces[0])} "
+              f"bytes, {len(events)} events, {n_kernels} of them CUDA kernels")
+    x = torch.tensor([-1.0, 4.0], device=dev, requires_grad=True)
+    debug_nans(True)
+    try:
+        torch.sqrt(x).sum().backward()
+        fail("slice 8: debug_nans(True) let a NaN through a backward pass")
+    except RuntimeError as e:
+        if "nan" not in str(e):
+            raise
+        print(f"slice 8: debug_nans(True) raised on the NaN: {str(e).splitlines()[0]}")
+    finally:
+        debug_nans(False)
+
+    launches = (P.LAUNCHES, CV.LAUNCHES)
+    if launches != (0, 0):
+        fail(f"slice 8 launched the kernels (phasor, conv) {launches} times; the variant "
+             f"models run cuDNN and cuBLAS only")
+    return launches, walls, rates
+
+
 def bf16_against_f32(pe, bank, measured, g, dev, card) -> dict:
     """GAN steps/s (default recipe, batch 8) and the wall time of a
     4000-draw posterior (G's draws in chunks of 256 through the PE), bf16
@@ -1327,7 +1585,15 @@ def main():
     print(f"slice 7 finished in {time.perf_counter() - t0:.1f} s; launches (phasor, conv): "
           + json.dumps(launches_7))
 
-    # ---- 13. throughput (information, warm, same process) -------------------
+    # ---- 13. slice 8: the variant generations ----------------------------------
+    t0 = time.perf_counter()
+    launches_8, walls_8, rates_8 = slice8(cli_main, P, CV, build, card)
+    print(f"slice 8 finished in {time.perf_counter() - t0:.1f} s; launches (phasor, conv) "
+          f"{launches_8}; walls s " + json.dumps({k: round(v, 2) for k, v in walls_8.items()})
+          + "; steps/s " + json.dumps({k: round(v, 1) for k, v in rates_8.items()})
+          + f" [{card}]")
+
+    # ---- 14. throughput (information, warm, same process) -------------------
     from gennet_tpu_torch.models import BBHGenerator, DualBranchPE, PairDiscriminator
     from gennet_tpu_torch.train import cnn as tcnn
     from gennet_tpu_torch.train import gan as tgan
@@ -1405,6 +1671,34 @@ def main():
           f"{fmt(burst_gan_rates)} steps/s (n_pix 512, batch 64, residual route, cuDNN convs, "
           f"50 steps each) [{card}]")
 
+    # cuDNN's deterministic algorithms, which runtime.setup pins, against
+    # its defaults, in turns, on the GAN steps whose backward runs cuDNN:
+    # the flagship's under xla and the burst's (1-D), the image GAN's (2-D)
+    from gennet_tpu_torch.models.image_models import FlatImageDiscriminator, FlatImageGenerator
+    from gennet_tpu_torch.physics.blobs import make_blob_bank
+
+    i_bank = make_blob_bank(g, 10_000, 28)[0].reshape(10_000, -1)
+    i_meas = i_bank[0] + 0.3 * torch.randn(784, generator=g, device=dev)
+    i_cfg = tgan.GANConfig(n_pix=784, batch_size=64, lr=2e-4, n_sig=0.3,
+                           pair_discriminator=False, residual_route=True)
+    i_gan = tgan.init_gan(torch.Generator().manual_seed(3), FlatImageGenerator(28),
+                          FlatImageDiscriminator(28), i_cfg, dev)
+    det_loops = {
+        "GAN xla (batch 8)": lambda: tgan.gan_step(gans["xla"], bank, measured, g, cfg=gan_cfg),
+        "burst GAN (batch 64)": lambda: tgan.gan_step(b_gan, b_bank, b_meas, g, cfg=b_gan_cfg),
+        "image GAN (n_pix 28, batch 64)": lambda: tgan.gan_step(i_gan, i_bank, i_meas, g,
+                                                                cfg=i_cfg)}
+    det_rates = {k: {True: [], False: []} for k in det_loops}
+    for det in (True, False, False, True):
+        torch.backends.cudnn.deterministic = det
+        for k, step in det_loops.items():
+            det_rates[k][det].append(steps_per_s(step, n=30))
+    torch.backends.cudnn.deterministic = True
+    print("throughput: GAN steps/s with cuDNN's deterministic algorithms (on) against its "
+          "defaults (off), order on, off, off, on, 30 steps each: "
+          + "; ".join(f"{k} on {fmt(v[True])}, off {fmt(v[False])}" for k, v in det_rates.items())
+          + f" [{card}]")
+
     def worst(table):
         """The timed shape with the largest kernel / plain ratio."""
         shape, (k, p) = max(table.items(), key=lambda kv: kv[1][0] / kv[1][1])
@@ -1433,7 +1727,8 @@ def main():
                              "slice 3": phasor_launches_3, "slice 4": launches_4[0],
                              "slice 5": launches_5["phasor"],
                              **{f"slice 6 {k}": v[0] for k, v in launches_6.items()},
-                             **{f"slice 7 {k}": v[0] for k, v in launches_7.items()}},
+                             **{f"slice 7 {k}": v[0] for k, v in launches_7.items()},
+                             "slice 8": launches_8[0]},
     }, {
         "name": "conv1d_same_f32", "route": "cuda",
         "source": "gennet_tpu_torch/csrc/conv1d_same.cu",
@@ -1446,7 +1741,8 @@ def main():
                              "slice 3": conv_launches_3, "slice 4": launches_4[1],
                              "slice 5": launches_5["conv"],
                              **{f"slice 6 {k}": v[1] for k, v in launches_6.items()},
-                             **{f"slice 7 {k}": v[1] for k, v in launches_7.items()}},
+                             **{f"slice 7 {k}": v[1] for k, v in launches_7.items()},
+                             "slice 8": launches_8[1]},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

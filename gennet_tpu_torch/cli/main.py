@@ -1,17 +1,20 @@
 """gennet-tpu-torch CLI: ``make-bank``, ``train-cnn``, ``train-gan``,
-``train-bbh``, ``sample-posterior``, ``smoke`` and ``make-mdc``.
+``train-bbh``, ``sample-posterior``, ``smoke``, ``blob-toy``, ``image-gan``
+and ``make-mdc``.
 
-The flags are the JAX CLI's: every ``BBHConfig`` / ``BurstSmokeConfig``
-field is a flag (``--pe-iters``, ``--grid-grain``, …), ``make-bank`` takes
+The flags are the JAX CLI's: every ``BBHConfig`` / ``BurstSmokeConfig`` /
+``BlobToyConfig`` / ``ImageGANConfig`` field is a flag (``--pe-iters``,
+``--grid-grain``, …), ``make-bank`` takes
 ``-N -f -T -m -z -b --beta --lalinf-dir``, ``sample-posterior`` adds
 ``--n-samples`` and ``--out``, and ``make-mdc`` (host only) takes the JAX
 CLI's flags. The port adds ``--device`` (default ``cuda``; the run fails
 rather than fall back when CUDA is unavailable).
 
 ``--data-parallel`` (``make-bank``, ``train-cnn``, ``train-gan``,
-``train-bbh``, ``smoke``) runs the reference's data parallelism over
-``torch.distributed`` (:mod:`gennet_tpu_torch.train.mesh`): one process
-per card under ``torchrun``,
+``train-bbh``, ``smoke``, ``blob-toy``, ``image-gan``; the last two take it
+to their GAN step only, as the reference does) runs the reference's data
+parallelism over ``torch.distributed`` (:mod:`gennet_tpu_torch.train.mesh`):
+one process per card under ``torchrun``,
 
     torchrun --standalone --nproc_per_node=8 -m gennet_tpu_torch.cli.main train-bbh --data-parallel
 
@@ -33,7 +36,8 @@ import dataclasses
 import json
 import os
 
-from gennet_tpu_torch.cli.workloads import BBHConfig, BurstSmokeConfig
+from gennet_tpu_torch.cli.workloads import (BBHConfig, BlobToyConfig, BurstSmokeConfig,
+                                            ImageGANConfig)
 
 
 def _add_dataclass_args(parser, dc_type):
@@ -146,7 +150,11 @@ def main(argv=None):
     for name, help_, dc in (("train-cnn", "train the CNN point estimator", BBHConfig),
                             ("train-gan", "train the GAN waveform estimator", BBHConfig),
                             ("train-bbh", "full flagship pipeline (CNN then GAN)", BBHConfig),
-                            ("smoke", "sine-Gaussian burst smoke workload", BurstSmokeConfig)):
+                            ("smoke", "sine-Gaussian burst smoke workload", BurstSmokeConfig),
+                            ("blob-toy", "gen-1 blob-image toy (PE + MC-dropout + image GAN)",
+                             BlobToyConfig),
+                            ("image-gan", "gen-1 image-directory GAN (face-image mode)",
+                             ImageGANConfig)):
         p = sub.add_parser(name, help=help_)
         _add_dataclass_args(p, dc)
         p.add_argument("--data-parallel", action="store_true")
@@ -200,6 +208,12 @@ def main(argv=None):
         elif args.cmd == "smoke":
             out = workloads.run_burst_smoke(_build_dataclass(args, BurstSmokeConfig),
                                             device=device, mesh=mesh)
+        elif args.cmd == "blob-toy":
+            out = workloads.run_blob_toy(_build_dataclass(args, BlobToyConfig), device=device,
+                                         mesh=mesh)
+        elif args.cmd == "image-gan":
+            out = workloads.run_image_gan(_build_dataclass(args, ImageGANConfig), device=device,
+                                          mesh=mesh)
         elif args.cmd == "sample-posterior":
             out = workloads.sample_posterior(_build_dataclass(args, BBHConfig),
                                              n_samples=args.n_samples, out=args.out,

@@ -1231,3 +1231,224 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device, mesh: DataMesh | None = No
             "pool_ess": (sel_info or {}).get("pool_ess"),
             "plateau_k": len((sel_info or {}).get("plateau_members", [])) or None,
             "whiteness": whiteness}
+
+
+# ---------------------------------------------------------------------------
+# the gen-1 image workloads
+
+
+@dataclass
+class BlobToyConfig:
+    """``blob-toy`` workload config (ref: tests/ganymede.py:31-64,494-740);
+    the JAX package's fields and defaults."""
+
+    n_pix: int = 28
+    n_signals: int = 10_000
+    n_sig: float = 0.3
+    batch_size: int = 64
+    pe_iters: int = 2_000
+    mc_pe_iters: int = 2_000
+    gan_iters: int = 2_000
+    n_mc_draws: int = 1000         # MC-dropout posterior draws (ref: :617-620)
+    rms_gate: float = 5e-4         # convergence gate (ref: :626)
+    lr: float = 2e-4
+    cadence: int = 200
+    out_dir: str = "out/blob"
+    seed: int = 0
+    plots: bool = True             # the reference's blob toy draws no plot either way
+
+
+def _image_gan(n_pix: int, cfg, seed: int, device, mesh: DataMesh | None):
+    """The residual-route GAN on flattened n_pix × n_pix images (the 1-D
+    GAN step with the raw-series D), initialised from ``seed`` and
+    broadcast from rank 0 under a ``mesh``: (GANConfig, G, GANState)."""
+    from gennet_tpu_torch.models.image_models import FlatImageDiscriminator, FlatImageGenerator
+
+    gan_cfg = GANConfig(n_pix=n_pix * n_pix, batch_size=cfg.batch_size, lr=cfg.lr,
+                        n_sig=cfg.n_sig, pair_discriminator=False, residual_route=True)
+    G, D = FlatImageGenerator(n_pix=n_pix), FlatImageDiscriminator(n_pix=n_pix)
+    state = init_gan(torch.Generator().manual_seed(seed), G, D, gan_cfg, device)
+    if mesh is not None:
+        mesh.broadcast_modules_(G, D)
+    return gan_cfg, G, state
+
+
+def _train_image_gan(state, gan_cfg, bank, measured, gen, cfg, log, mesh):
+    """``cfg.gan_iters`` GAN steps, the metrics of step i logged at
+    i % cadence == 0, i > 0 (0-based, the reference's labels). Returns the
+    last step's metrics (empty without steps)."""
+    m = {}
+    for i in range(cfg.gan_iters):
+        state, m = gan_step(state, bank, measured, gen, cfg=gan_cfg, mesh=mesh)
+        if i % cfg.cadence == 0 and i > 0 and is_main(mesh):
+            mh = fetch_metrics(m)
+            log.log(i, mh)
+            print(log.status_line(i, mh, log.steps_per_sec(i)))
+    return m
+
+
+def run_blob_toy(cfg: BlobToyConfig, *, device, mesh: DataMesh | None = None):
+    """The blob-image workload on ``device`` (ref: tests/ganymede.py:494-740):
+    the exact grid posterior of one noisy blob image, a deterministic
+    image PE trained to the RMS gate, an MC-dropout PE trained on the noisy
+    bank and ``n_mc_draws`` stochastic predictions of the measured image
+    scored against the grid, then the image GAN (the residual route on the
+    flattened bank). Returns {"pe_rms", "mc_overlap", "gan_d_loss"}, as the
+    JAX workload does (``None`` on ranks other than 0 of a ``mesh``).
+
+    ``mesh`` reaches the GAN step only, as in the reference: rank 0 trains
+    both PEs, every rank trains the GAN on its block of the bank's rows.
+    Metric rows carry the reference's 0-based labels (i % cadence == 0,
+    i > 0). No plot is drawn, with or without ``plots``, as in the
+    reference.
+    """
+    from gennet_tpu_torch.models.image_models import ImageMCDropoutPE, ImagePE
+    from gennet_tpu_torch.models.layers import reset_module
+    from gennet_tpu_torch.physics.blobs import blob_grid_posterior, make_blob_bank
+    from gennet_tpu_torch.train.cnn import adam
+
+    if mesh is not None:
+        check_rows(cfg.n_signals, mesh.world, "the blob bank (n_signals)")
+    main = is_main(mesh)
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    os.makedirs(cfg.out_dir, exist_ok=True)
+    log = MetricLogger(cfg.out_dir if main else None, "blob")
+
+    bank, pars = make_blob_bank(gen, cfg.n_signals, cfg.n_pix)
+    signal = bank[0]
+    measured = signal + cfg.n_sig * torch.randn(signal.shape, generator=gen, device=device)
+    bank4 = bank[..., None]
+    noisy_bank = bank4 + cfg.n_sig * torch.randn(bank4.shape, generator=gen, device=device)
+
+    def train_pe(model, seed, iters, inputs, logged):
+        """Adam(lr, β1 0.5) on the sum over parameters of the batch MSE;
+        ``logged(i, loss)`` at i % cadence == 0, i > 0, True to stop."""
+        reset_module(model.cpu(), torch.Generator().manual_seed(seed)).to(device)
+        opt = adam(model.parameters(), cfg.lr, 0.5)
+        for i in range(iters):
+            idx = torch.randint(0, bank.shape[0], (cfg.batch_size,), generator=gen,
+                                device=device)
+            loss = torch.sum(torch.mean((model(inputs[idx], train=True, gen=gen)
+                                         - pars[idx]) ** 2, dim=0))
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            if i % cfg.cadence == 0 and i > 0 and logged(i, float(loss.detach())):
+                break
+        return model
+
+    rms, mc_overlap = [1.0, 1.0], None
+    if main:
+        L, gx, gy = (t.cpu().numpy() for t in blob_grid_posterior(measured, cfg.n_sig,
+                                                                    grain=cfg.n_pix))
+        # ---- deterministic PE to the RMS convergence gate (ref: :626) ----
+        pe = ImagePE(n_pix=cfg.n_pix)
+        tgt = pars[:2000].cpu().numpy()
+
+        def pe_logged(i, loss):
+            with torch.no_grad():
+                est = pe(bank4[:2000]).cpu().numpy()
+            rms[:] = [float(np.mean((tgt[:, k] - est[:, k]) ** 2)) for k in range(2)]
+            log.log(i, {"pe_loss": loss, "rms0": rms[0], "rms1": rms[1]})
+            print(f"{i}: [PE loss: {loss:f}, RMS: {rms[0]:f},{rms[1]:f}]")
+            return max(rms) < cfg.rms_gate  # the reference's while-gate
+
+        train_pe(pe, cfg.seed + 1, cfg.pe_iters, bank4, pe_logged)
+
+        # ---- MC-dropout PE on the noisy bank, then its posterior draws ----
+        def mc_logged(i, loss):
+            log.log(i, {"mc_pe_loss": loss})
+            return False
+
+        mc = train_pe(ImageMCDropoutPE(n_pix=cfg.n_pix), cfg.seed + 2, cfg.mc_pe_iters,
+                      noisy_bank, mc_logged)
+        # n_mc_draws stochastic predictions of the one measured image
+        # (ref: :617-620), batched: each row draws its own masks
+        with torch.no_grad():
+            draws = mc(measured[None, ..., None].expand(cfg.n_mc_draws, -1, -1, -1),
+                       gen=gen).cpu().numpy()
+        mc_overlap = float(gp.grid_overlap_score(draws, L, gx, gy))
+        print(f"MC-dropout posterior grid overlap: {mc_overlap:.4f}")
+
+    # ---- image GAN (the subtraction scheme on images) --------------------
+    flat_bank = bank.reshape(bank.shape[0], -1)
+    gen = _rank_stream(gen, cfg.seed, mesh)
+    gan_cfg, _, gan_state = _image_gan(cfg.n_pix, cfg, cfg.seed + 3, device, mesh)
+    m = _train_image_gan(gan_state, gan_cfg,
+                         flat_bank if mesh is None else mesh.shard_rows(flat_bank),
+                         measured.reshape(-1), gen, cfg, log, mesh)
+    log.close()
+    if not main:
+        return None
+    return {"pe_rms": rms, "mc_overlap": mc_overlap,
+            "gan_d_loss": float(m["d_loss"]) if m else float("nan")}
+
+
+@dataclass
+class ImageGANConfig:
+    """``image-gan`` workload config (ref: tests/ganymede.py:64,272-314, the
+    face-image path; the repo's stand-in fixtures are tests/data/images/,
+    regenerable by scripts/make_image_fixtures.py); the JAX package's
+    fields and defaults. GAN only: the reference forbids PE for
+    non-parametric image signals (ganymede.py:59-61)."""
+
+    image_glob: str = "tests/data/images/*.jpg"
+    n_pix: int = 32                # resized image side (divisible by 4)
+    n_sig: float = 0.3
+    batch_size: int = 32
+    gan_iters: int = 2_000
+    lr: float = 2e-4
+    cadence: int = 100
+    flip: bool = True              # append horizontally-flipped copies
+    out_dir: str = "out/image_gan"
+    seed: int = 0
+    plots: bool = True
+
+
+def run_image_gan(cfg: ImageGANConfig, *, device, mesh: DataMesh | None = None):
+    """The image-directory GAN on ``device``: load the images, bury the
+    first in N(0, n_sig) noise, and train the residual-route GAN to recover
+    it. Returns {"n_images", "recovery_corr", "gan_d_loss", "gan_g_loss"},
+    as the JAX workload does: recovery_corr is the correlation of the mean
+    of 64 generator draws with the clean image (``None`` on ranks other
+    than 0 of a ``mesh``).
+
+    The images are read, and a missing reader or matplotlib for
+    ``plots`` refused, before any device work. ``mesh`` reaches the GAN
+    step only; the bank's rows must divide over the ranks. Metric rows
+    carry the reference's 0-based labels (i % cadence == 0, i > 0).
+    """
+    from gennet_tpu_torch.data.images import load_image_dir
+
+    imgs = load_image_dir(cfg.image_glob, cfg.n_pix, flip=cfg.flip)  # (N, n, n, 1)
+    if cfg.plots:
+        plots.require_matplotlib()
+    if mesh is not None:
+        check_rows(imgs.shape[0], mesh.world, f"the image bank ({cfg.image_glob})")
+    main = is_main(mesh)
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    os.makedirs(cfg.out_dir, exist_ok=True)
+    log = MetricLogger(cfg.out_dir if main else None, "image_gan")
+
+    bank = torch.as_tensor(imgs.reshape(imgs.shape[0], -1), device=device)
+    signal = bank[0]
+    measured = signal + cfg.n_sig * torch.randn(signal.shape, generator=gen, device=device)
+    gen = _rank_stream(gen, cfg.seed, mesh)
+    gan_cfg, G, gan_state = _image_gan(cfg.n_pix, cfg, cfg.seed + 1, device, mesh)
+    m = _train_image_gan(gan_state, gan_cfg, bank if mesh is None else mesh.shard_rows(bank),
+                         measured, gen, cfg, log, mesh)
+    log.close()
+    if not main:
+        return None
+    # recovery: the mean generated image against the clean one
+    mean_gen = sample_generator(G, gan_state, gen, 64, gan_cfg).mean(dim=0).cpu().numpy()
+    sig_np = signal.cpu().numpy()
+    corr = float(np.corrcoef(mean_gen, sig_np)[0, 1])
+    if cfg.plots:
+        plots.plot_image_recovery(sig_np, measured.cpu().numpy(), mean_gen, cfg.n_pix,
+                                  cfg.out_dir)
+    return {"n_images": int(bank.shape[0]), "recovery_corr": corr,
+            "gan_d_loss": float(m["d_loss"]) if m else float("nan"),
+            "gan_g_loss": float(m["g_loss"]) if m else float("nan")}

@@ -1,1 +1,2 @@
-"""Data pipelines: whitened template-bank synthesis."""
+"""Data pipelines: whitened template-bank synthesis, bank and event-product
+files, MDC sets, and image directories."""

@@ -200,3 +200,20 @@ def plot_beta_history(beta_hist, steps, out_path, fname="beta_hist.png"):
     ax.set_xlabel("iteration")
     ax.set_ylabel("β overlap")
     _save(fig, out_path, fname, fname)
+
+
+def plot_image_recovery(signal, measured, mean_gen, n_pix: int, out_path: str,
+                        fname: str = "image_gan_recovery.png"):
+    """The image GAN's recovery panel: the clean image, the measured
+    (noisy) one and the mean generated one, greyscale, side by side
+    (``run_image_gan``'s figure, at its dpi of 150)."""
+    plt = _pyplot()
+    fig, axes = plt.subplots(1, 3, figsize=(9, 3))
+    for ax, (arr, title) in zip(axes, [(signal, "signal"), (measured, "measured"),
+                                       (mean_gen, "mean generated")]):
+        ax.imshow(np.asarray(arr).reshape(n_pix, n_pix), cmap="gray")
+        ax.set_title(title)
+        ax.axis("off")
+    os.makedirs(out_path, exist_ok=True)
+    fig.savefig(os.path.join(out_path, fname), dpi=150)
+    plt.close(fig)

@@ -7,7 +7,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gennet_tpu_torch.models.layers import (BatchNorm, Conv1d, Dense, PReLU,
+from gennet_tpu_torch.models.layers import (BatchNorm, Conv1d, Dense, PermaDropout, PReLU,
                                             channels_last_flatten, dropout)
 
 
@@ -118,3 +118,31 @@ class BurstPE(nn.Module):
         x = F.relu(self.conv0(x.transpose(1, 2)))
         x = F.relu(self.conv1(x))
         return self.dense1(F.relu(self.dense0(channels_last_flatten(x))))
+
+
+class MCDropoutPE(nn.Module):
+    """Monte-Carlo-dropout PE on 1-D series (port of ``MCDropoutPE``; ref:
+    PermaDropout + signal_dropout_pe_model, ganymede.py:67-72,175-209):
+
+    Conv(64, 5) SAME tanh → maxpool 2 → PermaDropout → Conv(128, 5) VALID
+    tanh → maxpool 2 → flatten → PermaDropout → Dense(1024) tanh
+    → PermaDropout → Dense(npar).
+
+    The dropout stays on at inference, so every call needs ``gen`` and
+    repeated calls draw an approximate posterior. Takes (B, n_pix, 1).
+    """
+
+    def __init__(self, n_pix: int = 512, npar: int = 2, rate: float = 0.5):
+        super().__init__()
+        self.conv0 = Conv1d(1, 64, 5)
+        self.conv1 = Conv1d(64, 128, 5, padding="VALID")
+        L = (n_pix // 2 - 4) // 2
+        self.dense0 = Dense(128 * L, 1024)
+        self.dense1 = Dense(1024, npar)
+        self.drop = PermaDropout(rate)
+
+    def forward(self, x, train: bool = False, gen: torch.Generator | None = None):
+        x = F.max_pool1d(torch.tanh(self.conv0(x.transpose(1, 2))), 2)
+        x = F.max_pool1d(torch.tanh(self.conv1(self.drop(x, gen))), 2)
+        x = torch.tanh(self.dense0(self.drop(channels_last_flatten(x), gen)))
+        return self.dense1(self.drop(x, gen))

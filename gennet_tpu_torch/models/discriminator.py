@@ -68,3 +68,30 @@ class BurstDiscriminator(nn.Module):
         x = F.max_pool1d(act(self.conv0(x.transpose(1, 2))), 2)
         x = F.max_pool1d(act(self.conv1(x)), 2)
         return self.dense1(act(self.dense0(channels_last_flatten(x))))
+
+
+class SoftmaxDiscriminator(nn.Module):
+    """The gen-3 two-class discriminator (port of ``SoftmaxDiscriminator``;
+    ref: train_on_wvf_version/nn.py:83-93):
+
+    Conv(n_channels, conv_sz) VALID relu → Dropout(drate) → channels-last
+    flatten → Dense(n_channels) → Dense(2) logits.
+
+    Takes (B, n_pix, 1), or (B, n_pix) as one channel. Dropout is flax
+    ``nn.Dropout`` (:func:`~gennet_tpu_torch.models.layers.dropout`), on
+    with ``train`` and masks from ``gen``.
+    """
+
+    def __init__(self, n_pix: int = 512, n_channels: int = 25, conv_sz: int = 5,
+                 drate: float = 0.25):
+        super().__init__()
+        self.drate = drate
+        self.conv = Conv1d(1, n_channels, conv_sz, padding="VALID")
+        self.dense0 = Dense(n_channels * (n_pix - conv_sz + 1), n_channels)
+        self.dense1 = Dense(n_channels, 2)
+
+    def forward(self, x, train: bool = False, gen: torch.Generator | None = None):
+        if x.ndim == 2:
+            x = x[..., None]
+        x = dropout(F.relu(self.conv(x.transpose(1, 2))), self.drate, train, gen)
+        return self.dense1(self.dense0(channels_last_flatten(x)))

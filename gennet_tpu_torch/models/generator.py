@@ -6,7 +6,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gennet_tpu_torch.models.layers import (Conv1d, Dense, GaussianDropout, activation,
+from gennet_tpu_torch.models.layers import (BatchNorm, Conv1d, Dense, GaussianDropout, activation,
                                             conv1d_layer, dropout, norm_layer, upsample1d)
 
 
@@ -113,4 +113,61 @@ class BurstGenerator(nn.Module):
         x = upsample1d(x, 2)
         for conv, drop in zip(self.convs, self.drops):
             x = drop(F.relu(conv(x)), train, gen)
+        return torch.tanh(self.out_conv(x)).transpose(1, 2)
+
+
+class DenseGenerator(nn.Module):
+    """The gen-3 softmax-GAN generator (port of ``DenseGenerator``; ref:
+    train_on_wvf_version/nn.py:72-81): Dense(dense_dim) relu → Dense(150)
+    relu → Dense(n_out) tanh. z (B, latent) → (B, n_out)."""
+
+    def __init__(self, n_out: int = 512, latent_dim: int = 10, dense_dim: int = 300):
+        super().__init__()
+        self.n_out, self.latent_dim = n_out, latent_dim
+        self.dense0 = Dense(latent_dim, dense_dim)
+        self.dense1 = Dense(dense_dim, 150)
+        self.dense2 = Dense(150, n_out)
+
+    def forward(self, z, train: bool = False, gen: torch.Generator | None = None):
+        x = F.relu(self.dense1(F.relu(self.dense0(z))))
+        return torch.tanh(self.dense2(x))
+
+
+class TransposeGenerator(nn.Module):
+    """The gen-4 anti-mode-collapse generator (port of
+    ``TransposeGenerator``; ref: 2_model_version/*/no_mode_collapse_network.py):
+
+    latent(1) → Dense(n_out) → reshape (n_out, 1)
+    → [ConvT(512/256/128/64, 5) → act → BatchNorm(0.9)] → ConvT(1, 5) tanh
+    → (B, n_out, 1)
+
+    flax's ``nn.ConvTranspose`` at stride 1 with SAME padding (and
+    ``transpose_kernel=False``) is a cross-correlation with the kernel's
+    taps as stored, the very computation of ``nn.Conv``: so its layers are
+    :class:`Conv1d` with the converted kernel, and not
+    ``nn.ConvTranspose1d``, which flips the taps. The keyword arguments of
+    :meth:`forward` are :class:`BBHGenerator`'s; there is no dropout.
+    """
+
+    def __init__(self, n_out: int = 512, latent_dim: int = 1,
+                 features: Sequence[int] = (512, 256, 128, 64), act: str = "relu",
+                 bn_momentum: float = 0.9):
+        super().__init__()
+        self.n_out, self.latent_dim, self.act_name = n_out, latent_dim, act
+        self.dense = Dense(latent_dim, n_out)
+        self.convs, self.norms = nn.ModuleList(), nn.ModuleList()
+        cin = 1
+        for feat in features:
+            self.convs.append(Conv1d(cin, feat, 5))
+            self.norms.append(BatchNorm(feat, bn_momentum))
+            cin = feat
+        self.out_conv = Conv1d(cin, 1, 5)
+
+    def forward(self, z, train: bool = False, bn_train: bool | None = None,
+                gen: torch.Generator | None = None, commit_stats: bool = False):
+        bn = train if bn_train is None else bn_train
+        act = activation(self.act_name)
+        x = self.dense(z)[:, None, :]  # (B, 1, n_out)
+        for conv, norm in zip(self.convs, self.norms):
+            x = norm(act(conv(x)), bn, commit_stats)
         return torch.tanh(self.out_conv(x)).transpose(1, 2)

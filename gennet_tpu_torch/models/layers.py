@@ -271,10 +271,77 @@ class GaussianDropout(nn.Module):
                                               dtype=x.dtype))
 
 
+class PermaDropout(nn.Module):
+    """Dropout that stays on at inference (port of
+    ``models.layers.PermaDropout``; ref: ganymede.py:67-72): every call
+    keeps each element with probability 1 − rate and rescales it by
+    1/(1 − rate), with the mask drawn from ``gen``, in training and in
+    evaluation alike. The MC-dropout PEs draw a posterior from repeated
+    calls. It refuses to run without a generator."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, gen: torch.Generator | None):
+        if gen is None:
+            raise ValueError("PermaDropout is always active, and no torch.Generator was given")
+        return dropout(x, self.rate, True, gen)
+
+
+def replay(gen: torch.Generator | None):
+    """A callable that rewinds ``gen`` to its state now and returns it, so
+    that every dropout pass it feeds draws the same masks: the reference
+    drives several passes with one dropout key. ``None`` stays ``None``."""
+    if gen is None:
+        return lambda: None
+    state = gen.get_state()
+
+    def rewound():
+        gen.set_state(state)
+        return gen
+
+    return rewound
+
+
+class Conv2d(nn.Module):
+    """2-D convolution at stride 1 with flax padding on (B, C, H, W)
+    tensors: ``"SAME"`` pads K − 1 per axis, low (K − 1) // 2 and high the
+    rest; ``"VALID"`` pads nothing. Weight (Cout, Cin, kh, kw) = flax's
+    kernel (kh, kw, Cin, Cout) transposed; flax's lecun_normal with fan_in
+    Cin·kh·kw."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5, padding: str = "SAME"):
+        super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+        self.kernel_size, self.padding = kernel_size, padding
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_ch))
+        self.reset_parameters()
+
+    def reset_parameters(self, gen: torch.Generator | None = None):
+        lecun_normal_(self.weight, self.weight.shape[1] * self.kernel_size**2, gen)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        if self.padding == "SAME":
+            lo = (self.kernel_size - 1) // 2
+            hi = self.kernel_size - 1 - lo
+            x = F.pad(x, (lo, hi, lo, hi))
+        return F.conv2d(x, self.weight, self.bias)
+
+
 def upsample1d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Keras UpSampling1D on (B, C, L): repeat each sample along L
     (ref: bbhMahoGANy.py:249,258)."""
     return torch.repeat_interleave(x, factor, dim=-1)
+
+
+def upsample2d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Nearest upsampling of (B, C, H, W) on both axes: the image
+    generator's ``jnp.repeat`` along H, then along W."""
+    return torch.repeat_interleave(torch.repeat_interleave(x, factor, dim=-2), factor, dim=-1)
 
 
 def activation(name: str):
@@ -289,9 +356,10 @@ def activation(name: str):
 
 
 def channels_last_flatten(x: torch.Tensor) -> torch.Tensor:
-    """Flatten (B, C, L) in flax's (B, L, C) order, index l·C + c, so a
-    converted Dense kernel applies unchanged."""
-    return x.transpose(1, 2).reshape(x.shape[0], -1)
+    """Flatten (B, C, L) or (B, C, H, W) in flax's channels-last order,
+    index l·C + c or (h·W + w)·C + c, so a converted Dense kernel applies
+    unchanged."""
+    return x.movedim(1, -1).reshape(x.shape[0], -1)
 
 
 def reset_module(module: nn.Module, gen: torch.Generator | None = None) -> nn.Module:

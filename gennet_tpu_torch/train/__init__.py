@@ -1,1 +1,2 @@
-"""Training: CNN point-estimator and pair-GAN steps, checkpoints, metrics."""
+"""Training: CNN point-estimator and pair-GAN steps, the softmax, denoiser
+and two-stage GAN trainers, data parallelism, checkpoints, metrics."""

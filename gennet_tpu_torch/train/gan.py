@@ -28,7 +28,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from gennet_tpu_torch.models.layers import reset_module
+from gennet_tpu_torch.models.layers import replay, reset_module
 from gennet_tpu_torch.train import losses as L
 from gennet_tpu_torch.train.cnn import adam, ema_update, param_copy
 from gennet_tpu_torch.train.mesh import DataMesh, running_stats
@@ -215,14 +215,8 @@ def gan_update(state: GANState, batch: GANBatch, measured: torch.Tensor,
 
     # one dropout key drives every D pass of the step in the reference
     # (real, fake and R1's): same masks
-    gen_state = batch.gen.get_state() if batch.gen is not None else None
-
-    def d_masks():
-        if gen_state is not None:
-            batch.gen.set_state(gen_state)
-        return batch.gen
-
-    lr_ = D(real_in, train=True, gen=batch.gen)
+    d_masks = replay(batch.gen)
+    lr_ = D(real_in, train=True, gen=d_masks())
     lf_ = D(fake_in, train=True, gen=d_masks())
     d_loss = 0.5 * (L.bce_with_logits(lr_, batch.y_real) + L.bce_with_logits(lf_, batch.y_fake))
     if cfg.r1_gamma > 0.0:

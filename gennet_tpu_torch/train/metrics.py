@@ -1,8 +1,11 @@
 """Metrics logging: reference-style status lines, a jsonl history whose
 schema matches ``gennet_tpu.train.metrics`` (one ``{metric: float, "step":
 int}`` object per line), the same history in memory for the plots, and a
-steps/sec meter."""
+steps/sec meter; and the observability helpers, a ``torch.profiler`` trace
+and anomaly mode (the reference's ``jax.profiler`` trace and
+``jax_debug_nans``)."""
 
+import contextlib
 import json
 import os
 import time
@@ -72,3 +75,26 @@ def fetch_metrics(metrics: dict) -> dict:
     keys = list(metrics)
     vals = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32) for k in keys]).cpu()
     return {k: float(v) for k, v in zip(keys, vals.tolist())}
+
+
+@contextlib.contextmanager
+def profile_trace(out_dir: str):
+    """Profile the ``with`` block (the CPU, and every CUDA card when there
+    is one) and write its Chrome trace to ``out_dir/trace_<ns>.json``,
+    viewable in Perfetto or chrome://tracing. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(out_dir, f"trace_{time.time_ns()}.json"))
+
+
+def debug_nans(enable: bool = True):
+    """Numerical-sanitizer mode: autograd's anomaly detection, which raises
+    when a backward function returns NaN and names the forward operation
+    that made it (process-wide, as ``jax_debug_nans`` is)."""
+    torch.autograd.set_detect_anomaly(enable)
