@@ -102,7 +102,26 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    float32 under both implementations, in turns, three runs a side, with
    the conv kernel's launches per step and per draw in both dtypes, and
    the GAN steps/s of the flagship (``xla``), burst and image GANs under
-   cuDNN's deterministic algorithms against its defaults, in turns.
+   cuDNN's deterministic algorithms against its defaults, in turns, and
+   ``ml_recenter`` as eager steps on slice 5's cloud;
+15. slice 9, the fused step loops as CUDA-graph replays (n_pix 1024,
+   batch 8, chunks of 100): a GAN chunk as replays against 100 eager steps
+   under ``xla`` and ``pallas``, default recipe and residual route
+   (parameters, Adam state, BN statistics, stacked metrics and generator
+   bit for bit; 25 and 35 conv launches a replay, 25 a step confirmed by
+   ``torch.profiler``'s kernel events over one chunk, with the idle share
+   of a chunk each way); a 256-draw after the replays equal to the same
+   draw with the weight-pack cache cleared; the balance gate at 0.9
+   crossed both ways, D and its Adam state unchanged through every closed
+   step; a PE chunk with the cosine decay; ``ml_recenter`` replayed
+   against phase 14's eager call (bit for bit, 3 phasor launches a
+   replay; a 10-step call's phasor kernel events under ``torch.profiler``
+   equal to its counted launches and to those of the same call as eager
+   steps); ``train-bbh --conv-impl pallas`` (200 PE and 200 GAN steps,
+   cadence 100) and a ``--resume`` from its step 100, bit for bit, with
+   the launch counts; then steps/s graph against eager in turns, three
+   runs a side, for the PE and GAN loops at batch 8 and the burst GAN at
+   batch 64, and the capture times (information).
 
 Every timed kernel call prints its bound: the larger of its operations
 over 165 TFLOP/s (the 3xTF32 ceiling: 495 TFLOP/s of TF32 over three
@@ -277,10 +296,15 @@ def default_recipe_gans(n_pix, dev) -> tuple:
                      for impl in ("xla", "pallas")}
 
 
-def ml_recenter_seconds(g, dev) -> tuple:
-    """(wall s, phasor launches) of one ``ml_recenter`` call at the flagship
-    geometry: 300 Adam steps through the synthesis of 8 starts, 3 phasor
-    launches and one VJP a step."""
+def ml_recenter_seconds(g, dev, cloud=None, eager=False, steps=300, profile=False) -> dict:
+    """One ``ml_recenter`` call at the flagship geometry: ``steps`` Adam
+    steps through the synthesis of 8 starts, 3 phasor launches and one VJP
+    a step, on ``cloud`` (4000, 2) (a synthetic one by default). ``eager``:
+    its steps run eagerly on the card (``graphs.graphable`` refuses for the
+    call); ``profile``: the call runs under :func:`_profiled_chunk`.
+    Returns {"s": wall, "launches": phasor launches counted, "out":
+    recentred cloud, "graph": the StepGraph the steps ran with, "profile":
+    the profiler's reading or None}."""
     import numpy as np
     import torch
 
@@ -288,6 +312,7 @@ def ml_recenter_seconds(g, dev) -> tuple:
     from gennet_tpu_torch.eval import posterior_post as pp
     from gennet_tpu_torch.ops import phasor_dft as P
     from gennet_tpu_torch.physics import priors, psd as psd_mod
+    from gennet_tpu_torch.runtime import graphs
 
     cfg = tb.BankConfig()
     psd = psd_mod.analytic_advligo_psd(cfg.fs, cfg.T_obs * cfg.safe, device=dev)
@@ -299,14 +324,34 @@ def ml_recenter_seconds(g, dev) -> tuple:
         return tb.make_templates_from_params(m1s, m2s, psd, cfg)
 
     rng = np.random.default_rng(0)
-    event = synth([[28.1, 0.8]])[0] + torch.randn(cfg.n_out, generator=g, device=dev)
-    cloud = np.column_stack([rng.normal(28.5, 0.5, 4000), rng.uniform(0.6, 0.95, 4000)])
-    torch.cuda.synchronize()
-    P.LAUNCHES = 0
-    t0 = time.perf_counter()
-    pp.ml_recenter(cloud, synth, event, g)
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0, P.LAUNCHES
+    event = synth([[28.1, 0.8]])[0] + torch.randn(
+        cfg.n_out, generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+    if cloud is None:
+        cloud = np.column_stack([rng.normal(28.5, 0.5, 4000), rng.uniform(0.6, 0.95, 4000)])
+    made, res = [], {}
+
+    class Kept(graphs.StepGraph):  # the call's own StepGraph, kept to be read
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    saved = graphs.StepGraph, graphs.graphable
+    graphs.StepGraph = Kept
+    if eager:
+        graphs.graphable = lambda *a, **kw: False
+    try:
+        def call():
+            res["out"] = pp.ml_recenter(cloud, synth, event, g, steps=steps)
+
+        torch.cuda.synchronize()
+        P.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res["profile"] = _profiled_chunk(call, "phasor_kernel") if profile else call()
+        torch.cuda.synchronize()
+        res["s"] = time.perf_counter() - t0
+    finally:
+        graphs.StepGraph, graphs.graphable = saved
+    return {**res, "launches": P.LAUNCHES, "graph": made[0]}
 
 
 def same_tree(a, b, path="state") -> list:
@@ -331,7 +376,8 @@ def slice5(cli_main, P, CV, build, card) -> tuple:
     50,000 templates at n_pix 1024 into a ``.gntb``, ``train-cnn`` on that
     file, ``train-gan --conv-impl pallas`` for 10 steps and again for 20
     (which resumes at step 10), then ``sample-posterior --conv-impl pallas
-    --pe-mlrc 1``. Returns ({kernel: launches}, {stage: wall s})."""
+    --pe-mlrc 1``. Returns ({kernel: launches}, {stage: wall s}, the
+    posterior samples (4000, 2))."""
     import numpy as np
     import torch
 
@@ -441,7 +487,7 @@ def slice5(cli_main, P, CV, build, card) -> tuple:
         print("slice 5 summary: " + json.dumps({
             "stage_s": stage_s, "launches": launches, "posterior_mean": samples.mean(0).tolist(),
             "posterior_std": samples.std(0).tolist()}))
-    return launches, stage_s
+    return launches, stage_s, samples
 
 
 def slice6_bf16(cli_main, P, CV, build, card, n_synth) -> dict:
@@ -1119,6 +1165,377 @@ def slice8(cli_main, P, CV, build, card) -> tuple:
     return launches, walls, rates
 
 
+def _chunk_seconds(run) -> float:
+    """Host seconds of ``run()`` (a chunk of steps), synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _profiled_chunk(run, kernel: str = "conv1d_kernel") -> dict:
+    """``run()`` under ``torch.profiler``: its wall seconds, the device's
+    busy seconds (the sum of kernel times), the idle share and the events
+    of the kernel whose name holds ``kernel``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    # the card's activity alone: the host's op events would cost more to
+    # read back than the chunk takes
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = events = 0
+    # the raw records: building the profiler's event tree over a chunk's
+    # ~10^5 kernels would take longer than the chunk
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            busy += e.duration_ns()
+            events += kernel in e.name()
+    busy *= 1e-9
+    return {"wall_s": wall, "busy_s": busy, "idle": 1.0 - busy / wall, "events": events}
+
+
+def slice9(cli_main, P, CV, build, card, cloud, mlrc_eager) -> dict:
+    """The fused step loops as CUDA-graph replays (slice 9), at n_pix 1024,
+    batch 8, chunks of 100: graph against eager steps of the port bit for
+    bit (GAN under xla and pallas, default recipe and residual route; PE
+    with the cosine decay; ``ml_recenter`` on slice 5's cloud), the
+    replays' launch counts (25 and 35 conv a GAN step, 3 phasor an
+    ``ml_recenter`` step) confirmed by ``torch.profiler`` for one GAN
+    chunk and one short ``ml_recenter`` call, the balance gate crossed both ways, the weight packs after replays,
+    ``train-bbh --conv-impl pallas`` through the CLI with a ``--resume``
+    from step 100 against the uninterrupted run; then, as information,
+    steps/s graph against eager in turns, the idle share of a chunk each
+    way, capture times and ``ml_recenter``'s wall. ``mlrc_eager``: the
+    throughput phase's eager ``ml_recenter`` on ``cloud``
+    (:func:`ml_recenter_seconds`), which the graph run must reproduce.
+    Returns its launches by path, {path: (phasor, conv)}."""
+    import numpy as np
+    import torch
+
+    from gennet_tpu_torch.models import (BBHGenerator, BurstDiscriminator, BurstGenerator,
+                                         DualBranchPE, PairDiscriminator)
+    from gennet_tpu_torch.ops import tf32
+    from gennet_tpu_torch.physics.burst import make_burst_bank
+    from gennet_tpu_torch.train import cnn as tcnn
+    from gennet_tpu_torch.train import gan as tgan
+    from gennet_tpu_torch.runtime import graphs
+    from gennet_tpu_torch.train.checkpoints import CheckpointManager
+
+    t_slice = time.perf_counter()
+    walls = {}
+
+    def lap(name):  # each part's wall time, for the summary
+        walls[name] = time.perf_counter() - t_slice - sum(walls.values())
+
+    dev, n_pix, chunk = torch.device("cuda"), 1024, 100
+    g = torch.Generator(device=dev).manual_seed(9)
+    bank = torch.randn(4096, n_pix, generator=g, device=dev)
+    targets = torch.rand(4096, 2, generator=g, device=dev)
+    measured = torch.randn(n_pix, generator=g, device=dev)
+    launches, info = {}, {"card": card}
+    recipe = dict(n_pix=n_pix, label_smoothing=True, d_instance_noise=0.3, d_lr_scale=0.5,
+                  d_acc_gate=0.9)
+    recipes = {"default": (tgan.GANConfig(**recipe), 2, 25),
+               "residual": (tgan.GANConfig(**recipe, pair_discriminator=False,
+                                           residual_route=True, res_loss_weight=1.0,
+                                           res_spectral_bands=16, diversity_weight=0.1), 1, 35)}
+
+    def differ(a: list, b: list) -> int:
+        return len(a) + len(b) if len(a) != len(b) else sum(
+            not torch.equal(x, y) for x, y in zip(a, b))
+
+    def stacked(rows):
+        return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+    def gan_state(cfg, in_ch, impl):
+        return tgan.init_gan(torch.Generator().manual_seed(2),
+                             BBHGenerator(n_out=n_pix, conv_impl=impl),
+                             PairDiscriminator(n_pix=n_pix, in_ch=in_ch, conv_impl=impl), cfg, dev)
+
+    def eager_gan(st, cfg, gen, kt, n=chunk):
+        return stacked([tgan.gan_step(st, bank, measured, gen, kt, cfg=cfg)[1]
+                        for _ in range(n)])
+
+    # ---- GAN: one chunk as replays against 100 eager steps -----------------
+    keep = {}
+    for impl in ("xla", "pallas"):
+        for name, (cfg, in_ch, conv_per_step) in recipes.items():
+            runs = []
+            for use_graph in (True, False):
+                st = gan_state(cfg, in_ch, impl)
+                gen = torch.Generator(device=dev).manual_seed(11)
+                P.LAUNCHES = CV.LAUNCHES = 0
+                if use_graph:
+                    scan = tgan.make_gan_step_scan(st.generator, st.discriminator, cfg, chunk)
+                    st, m = scan(st, bank, measured, gen)
+                else:
+                    m = eager_gan(st, cfg, gen, tgan.knob_tensors(tgan.knobs_from_cfg(cfg), dev))
+                torch.cuda.synchronize()
+                runs.append((st, m, gen.get_state(), CV.LAUNCHES, gen))
+            (a, ma, ga, la, a_gen), (b, mb, gb, lb, _) = runs
+            bad = (differ(tgan.state_tensors(a), tgan.state_tensors(b))
+                   + differ([ma[k] for k in sorted(ma)], [mb[k] for k in sorted(mb)])
+                   + (not torch.equal(ga, gb)))
+            per_replay = scan.graph.launches.get(CV, 0)
+            want = conv_per_step if impl == "pallas" else 0
+            print(f"slice 9: GAN {impl} {name}: a chunk of {chunk} as {scan.graph.replays} "
+                  f"replays after {graphs.WARMUP} eager steps (capture "
+                  f"{scan.graph.capture_s:.3f} s) against {chunk} eager steps: "
+                  f"{'bitwise equal' if not bad else f'{bad} tensors differ'} (parameters, Adam "
+                  f"state, BN statistics, stacked metrics, generator); conv launches "
+                  f"{la} / {lb}, {per_replay} a replay [{card}]")
+            if bad:
+                fail(f"slice 9: GAN {impl} {name}: the replays differ from eager steps ({bad})")
+            if per_replay != want or la != lb or la != want * chunk:
+                fail(f"slice 9: GAN {impl} {name}: conv launches {la} (graph), {lb} (eager), "
+                     f"{per_replay} a replay; expected {want} a step")
+            launches[f"GAN {impl} {name}"] = (P.LAUNCHES, la)
+            if name == "default":  # the graph is kept with the generator it registered
+                keep[impl] = (a, scan, cfg, a_gen)
+            del runs, a, b
+
+    lap("GAN chunks")
+
+    # ---- stale packs: eager draws after replays under pallas ----------------
+    st, scan, cfg, gen = keep["pallas"]
+    draws = []
+    for clear in (False, True):
+        if clear:
+            tf32._PACKS.clear()
+        draws.append(tgan.sample_generator(st.generator, st, torch.Generator(device=dev)
+                                           .manual_seed(3), 256, cfg))
+    if not torch.equal(*draws):
+        fail("slice 9: a draw after replays differs from the same draw with the pack cache "
+             "cleared: a stale weight pack was served")
+    print("slice 9: a 256-draw after the pallas chunk's replays equals the same draw with the "
+          "pack cache cleared, bit for bit")
+    lap("packs")
+
+    # ---- the profiler: conv events of one chunk, idle share each way --------
+    kt = tgan.knob_tensors(tgan.knobs_from_cfg(cfg), dev)
+    prof = {"graph": _profiled_chunk(lambda: scan(st, bank, measured, gen)),
+            "eager": _profiled_chunk(lambda: eager_gan(st, cfg, g, kt))}
+    print("slice 9: torch.profiler over one chunk of 100 GAN pallas steps (default recipe): "
+          + "; ".join(f"{k}: wall {v['wall_s']:.3f} s, device busy {v['busy_s']:.3f} s, idle "
+                      f"share {v['idle']:.3f}, conv kernel events {v['events']}"
+                      for k, v in prof.items()) + f" [{card}]")
+    if prof["graph"]["events"] != 25 * chunk:
+        fail(f"slice 9: the profiler saw {prof['graph']['events']} conv kernel events in a "
+             f"chunk of {chunk} replays; expected {25 * chunk}")
+    info["profile_gan_pallas"] = prof
+    lap("profiler")
+
+    # ---- both sides of the gate ---------------------------------------------
+    # D wins quickly without label smoothing and instance noise, then G
+    # catches up: the gate at 0.9 closes and opens again
+    gcfg = tgan.GANConfig(n_pix=n_pix, d_acc_gate=0.9, debug_probes=True)
+    st_g = gan_state(gcfg, 2, "xla")
+    st_e = gan_state(gcfg, 2, "xla")
+    scan_g = tgan.make_gan_step_scan(st_g.generator, st_g.discriminator, gcfg, chunk)
+    gen_g, gen_e = (torch.Generator(device=dev).manual_seed(13) for _ in range(2))
+    kt = tgan.knob_tensors(tgan.knobs_from_cfg(gcfg), dev)
+    closed = opened = bad = held = 0
+    for _ in range(3):
+        st_g, mg = scan_g(st_g, bank, measured, gen_g)
+        rows = []
+        for i in range(chunk):
+            before = [t.clone() for t in graphs.optimizer_tensors(st_e.d_opt)
+                      + list(st_e.discriminator.parameters())]
+            rows.append(tgan.gan_step(st_e, bank, measured, gen_e, kt, cfg=gcfg)[1])
+            after = (graphs.optimizer_tensors(st_e.d_opt)
+                     + list(st_e.discriminator.parameters()))
+            if float(rows[-1]["d_acc"]) >= 0.9:
+                closed += 1
+                held += differ(before, after) == 0
+            else:
+                opened += 1
+        me = stacked(rows)
+        bad += differ([mg[k] for k in sorted(mg)], [me[k] for k in sorted(me)])
+        if closed and opened:
+            break
+    bad += differ(tgan.state_tensors(st_g), tgan.state_tensors(st_e))
+    print(f"slice 9: the balance gate at 0.9 (no label smoothing, no instance noise): "
+          f"{closed} closed and {opened} open steps; D and its Adam state unchanged through "
+          f"{held} of the {closed} closed steps (eager, step by step); replays against eager "
+          f"steps: {'bitwise equal' if not bad else f'{bad} differ'} [{card}]")
+    if not (closed and opened) or held != closed or bad:
+        fail(f"slice 9: the gate: {closed} closed, {opened} open, {held} held, {bad} differ")
+    del st_g, st_e, scan_g
+    lap("gate")
+
+    # ---- PE: a chunk of 100 with the cosine decay ---------------------------
+    pe_cfg = tcnn.CNNConfig(n_pix=n_pix, ema_decay=0.999, lr_decay_steps=500_000)
+    pe_runs = []
+    for use_graph in (True, False):
+        pe = tcnn.init_cnn(torch.Generator().manual_seed(1), DualBranchPE(n_pix=n_pix), pe_cfg,
+                           dev)
+        gen = torch.Generator(device=dev).manual_seed(12)
+        if use_graph:
+            pe_scan = tcnn.make_cnn_step_scan(pe.model, pe_cfg, chunk)
+            pe, m = pe_scan(pe, bank, targets, gen)
+        else:
+            m = stacked([tcnn.cnn_step(pe, bank, targets, gen, cfg=pe_cfg)[1]
+                         for _ in range(chunk)])
+        pe_runs.append((pe, m, gen.get_state(), gen))
+    (a, ma, ga, pe_gen), (b, mb, gb, _) = pe_runs
+    bad = (differ(tcnn.state_tensors(a), tcnn.state_tensors(b))
+           + (not torch.equal(ma["pe_loss"], mb["pe_loss"])) + (not torch.equal(ga, gb)))
+    print(f"slice 9: PE chunk of {chunk} with the cosine decay (capture "
+          f"{pe_scan.graph.capture_s:.3f} s) against eager steps: "
+          f"{'bitwise equal' if not bad else f'{bad} differ'}; lr after "
+          f"{float(a.opt.param_groups[0]['lr']):.9g} [{card}]")
+    if bad:
+        fail(f"slice 9: the PE chunk differs from eager steps ({bad})")
+    pe_state = a
+    lap("PE chunk")
+
+    # ---- ml_recenter on slice 5's cloud, against the throughput phase's
+    # eager call (the same cloud, event and seed) ----------------------------
+    gr_run = ml_recenter_seconds(torch.Generator(device=dev).manual_seed(14), dev, cloud=cloud)
+    sg, lg, og, gr = (gr_run[k] for k in ("s", "launches", "out", "graph"))
+    se, le, oe = (mlrc_eager[k] for k in ("s", "launches", "out"))
+    per = gr.launches.get(P, 0)
+    print(f"slice 9: ml_recenter (300 Adam steps, 8 starts) on slice 5's cloud: eager "
+          f"{se:.2f} s, graph {sg:.2f} s (capture {gr.capture_s:.3f} s, {gr.replays} replays); "
+          f"outputs {'bitwise equal' if np.array_equal(oe, og) else 'differ'}; phasor launches "
+          f"{le} / {lg}, {per} a replay [{card}]")
+    if not np.array_equal(oe, og) or per != 3 or le != lg:
+        fail(f"slice 9: ml_recenter graph against eager: equal {np.array_equal(oe, og)}, "
+             f"phasor {per} a replay, launches {le} / {lg}")
+    # the replay accounting against the card's own record: a short call
+    # under torch.profiler, whose phasor kernel events must be the
+    # launches counted one by one in the same call as eager steps (3 a
+    # step, and the syntheses around the loop), so 3 a replay plus the
+    # warm-up's
+    n_short, g_short = 10, lambda: torch.Generator(device=dev).manual_seed(15)
+    short_e = ml_recenter_seconds(g_short(), dev, cloud=cloud, eager=True, steps=n_short)
+    short_g = ml_recenter_seconds(g_short(), dev, cloud=cloud, steps=n_short, profile=True)
+    ev, reps = short_g["profile"]["events"], short_g["graph"].replays
+    print(f"slice 9: torch.profiler over one ml_recenter call of {n_short} steps as "
+          f"{graphs.WARMUP} eager steps and {reps} replays: {ev} phasor kernel events; launches "
+          f"counted {short_g['launches']} (replay accounting), {short_e['launches']} (the same "
+          f"call as eager steps) [{card}]")
+    if not ev == short_g["launches"] == short_e["launches"] or reps != n_short - graphs.WARMUP \
+            or not np.array_equal(short_e["out"], short_g["out"]):
+        fail(f"slice 9: ml_recenter of {n_short} steps: {ev} phasor kernel events, launches "
+             f"{short_g['launches']} (graph) and {short_e['launches']} (eager), {reps} replays, "
+             f"outputs equal {np.array_equal(short_e['out'], short_g['out'])}")
+    launches["ml_recenter"] = (lg, 0)
+    info["ml_recenter_s"] = {"eager": se, "graph": sg, "capture": gr.capture_s}
+    info["profile_ml_recenter"] = {**short_g["profile"], "steps": n_short, "replays": reps}
+    lap("ml_recenter")
+
+    # ---- steps/s graph against eager, in turns, in chunks of 50 (information)
+    rate_n = 50
+    b_bank, _ = make_burst_bank(g, 50_000, N=512)
+    b_meas = b_bank[0] + 0.25 * torch.randn(512, generator=g, device=dev)
+    b_cfg = tgan.GANConfig(n_pix=512, batch_size=64, lr=2e-4, n_sig=0.25,
+                           pair_discriminator=False, residual_route=True, res_loss_weight=10.0,
+                           label_smoothing=True, d_lr_scale=0.5)
+    b_gan = tgan.init_gan(torch.Generator().manual_seed(2), BurstGenerator(n_out=512),
+                          BurstDiscriminator(n_pix=512), b_cfg, dev)
+    b_kt = tgan.knob_tensors(tgan.knobs_from_cfg(b_cfg), dev)
+    scans = {"burst GAN (batch 64)": tgan.make_gan_step_scan(b_gan.generator, b_gan.discriminator,
+                                                             b_cfg, rate_n),
+             "PE (batch 8)": tcnn.make_cnn_step_scan(pe_state.model, pe_cfg, rate_n)}
+    loops = {}
+    for impl in ("xla", "pallas"):
+        st, _, cfg, gen = keep[impl]
+        kt = tgan.knob_tensors(tgan.knobs_from_cfg(cfg), dev)
+        k = f"GAN {impl} (batch 8)"
+        scans[k] = tgan.make_gan_step_scan(st.generator, st.discriminator, cfg, rate_n)
+        loops[k] = (lambda st=st, k=k, gen=gen: scans[k](st, bank, measured, gen),
+                    lambda st=st, cfg=cfg, kt=kt: eager_gan(st, cfg, g, kt, rate_n))
+    loops["PE (batch 8)"] = (
+        lambda: scans["PE (batch 8)"](pe_state, bank, targets, pe_gen),
+        lambda: [tcnn.cnn_step(pe_state, bank, targets, g, cfg=pe_cfg) for _ in range(rate_n)])
+    loops["burst GAN (batch 64)"] = (
+        lambda: scans["burst GAN (batch 64)"](b_gan, b_bank, b_meas, g),
+        lambda: [tgan.gan_step(b_gan, b_bank, b_meas, g, b_kt, cfg=b_cfg)
+                 for _ in range(rate_n)])
+    for graph_run, _ in loops.values():
+        graph_run()  # the capture
+    rates = {k: {"graph": [], "eager": []} for k in loops}
+    for side in ("eager", "graph", "graph", "eager", "eager", "graph"):
+        for k, (graph_run, eager_run) in loops.items():
+            run = graph_run if side == "graph" else eager_run
+            rates[k][side].append(rate_n / _chunk_seconds(run))
+    fmt = lambda r: "/".join(f"{x:.1f}" for x in r)
+    print(f"slice 9: steps/s in chunks of {rate_n}, order eager, graph, graph, eager, eager, graph: "
+          + "; ".join(f"{k} graph {fmt(v['graph'])}, eager {fmt(v['eager'])}"
+                      for k, v in rates.items())
+          + "; capture s: " + ", ".join(f"{k} {v.graph.capture_s:.3f}" for k, v in scans.items())
+          + f" [{card}]")
+    info["steps_per_s"] = rates
+    info["capture_s"] = {k: v.graph.capture_s for k, v in scans.items()}
+    del keep, b_gan, scans, loops, pe_state, pe_scan
+    lap("steps/s")
+
+    # ---- train-bbh through the CLI, and a resume from its step 100 -----------
+    cli_s, outs = {}, {}
+    with tempfile.TemporaryDirectory(dir=build) as work:
+        common = ["train-bbh", "--device", "cuda", "--n-pix", str(n_pix), "--training-num",
+                  "4097", "--grid-grain", "11", "--n-posterior", "256", "--pe-iters", "200",
+                  "--gan-iters", "200", "--cadence", "100", "--pe-cadence", "100",
+                  "--eval-cadence", "200", "--ckpt-every", "100", "--conv-impl", "pallas",
+                  "--plots", "false"]
+        whole, split = os.path.join(work, "whole"), os.path.join(work, "split")
+        for tag, extra in (("whole", ["--out-dir", whole]),
+                           ("resumed", ["--out-dir", split, "--resume", "true"])):
+            if tag == "resumed":
+                # the uninterrupted run's checkpoints at its GAN step 100 (and
+                # its trained PE) are where the resumed run starts
+                for sub, step in (("ckpt_gan", 100), ("ckpt_pe", 200)):
+                    os.makedirs(os.path.join(split, sub))
+                    shutil.copy(os.path.join(whole, sub, f"ckpt_{step}.pt"),
+                                os.path.join(split, sub))
+            P.LAUNCHES = CV.LAUNCHES = 0
+            t0 = time.perf_counter()
+            outs[tag] = cli_main([*common, *extra])
+            torch.cuda.synchronize()
+            cli_s[tag] = time.perf_counter() - t0
+            launches[f"train-bbh {tag}"] = (P.LAUNCHES, CV.LAUNCHES)
+        a, b = (torch.load(os.path.join(d, "ckpt_gan", "ckpt_200.pt"), weights_only=True)
+                for d in (whole, split))
+        diff = same_tree(a, b)
+        # the GAN phase's rows after step 100 (the resumed run trains no PE)
+        rows = [[r for r in read_rows(os.path.join(d, "bbh_metrics.jsonl"))
+                 if r["step"] > 100 and not {"pe_loss", "cnn_sanity_beta"} & set(r)]
+                for d in (whole, split)]
+    print(f"slice 9: train-bbh --conv-impl pallas (200 PE, 200 GAN steps, cadence 100, evals "
+          f"at 200 and final) in {cli_s['whole']:.1f} s; --resume from its GAN step 100 "
+          f"{cli_s['resumed']:.1f} s; launches (phasor, conv) "
+          + json.dumps({k: v for k, v in launches.items() if k.startswith("train-bbh")})
+          + f"; the resumed run's step-200 checkpoint and rows after step 100 against the "
+          f"uninterrupted run's: "
+          f"{'bitwise equal' if not diff and rows[0] == rows[1] else f'differ at {diff[:5]}'}"
+          f" [{card}]")
+    if diff or rows[0] != rows[1] or not rows[0]:
+        fail(f"slice 9: the resumed train-bbh differs from the uninterrupted run: {diff[:5]}")
+    if outs["whole"]["final_step"] != 200 or outs["resumed"]["final_step"] != 200:
+        fail(f"slice 9: final steps {outs['whole']['final_step']}, {outs['resumed']['final_step']}")
+    conv = {k: v[1] for k, v in launches.items() if k.startswith("train-bbh")}
+    # 25 a GAN step and 5 a 256-draw eval (one chunk of 256 through G's 5 convs)
+    want = {"train-bbh whole": 200 * 25 + 2 * 5, "train-bbh resumed": 100 * 25 + 2 * 5}
+    if conv != want:
+        fail(f"slice 9: train-bbh conv launches {conv}, expected {want}")
+    lap("train-bbh")
+    info["train_bbh_s"] = cli_s
+    info["walls_s"] = walls
+    info["seconds"] = time.perf_counter() - t_slice
+    print(f"slice 9 finished in {info['seconds']:.1f} s [{card}]")
+    print("slice 9 summary: " + json.dumps(info, default=str))
+    return launches
+
+
 def bf16_against_f32(pe, bank, measured, g, dev, card) -> dict:
     """GAN steps/s (default recipe, batch 8) and the wall time of a
     4000-draw posterior (G's draws in chunks of 256 through the PE), bf16
@@ -1568,7 +1985,7 @@ def main():
     print("slice 4 summary: " + json.dumps(out4))
 
     # ---- 10. slice 5: the staged pipeline through the CLI -------------------
-    launches_5, stage_s_5 = slice5(cli_main, P, CV, build, card)
+    launches_5, stage_s_5, cloud_5 = slice5(cli_main, P, CV, build, card)
 
     # ---- 11. slice 6: --bf16, --lalinf-dir on the port's products, plots ---
     launches_6 = {f"bf16 {k}": v for k, v in slice6_bf16(cli_main, P, CV, build, card,
@@ -1656,12 +2073,16 @@ def main():
     burst_gan_rates = [steps_per_s(lambda: tgan.gan_step(b_gan, b_bank, b_meas, g, cfg=b_gan_cfg))
                        for _ in range(2)]
     bf16_res = bf16_against_f32(pe, bank, measured, g, dev, card)
-    mlrc_s, mlrc_launches = ml_recenter_seconds(g, dev)
+    # eager steps on slice 5's cloud (the number earlier PRs reported);
+    # slice 9 replays the same call as a CUDA graph and must reproduce it
+    mlrc_eager = ml_recenter_seconds(torch.Generator(device=dev).manual_seed(14), dev,
+                                     cloud=cloud_5, eager=True)
+    mlrc_s, mlrc_launches = mlrc_eager["s"], mlrc_eager["launches"]
     fmt =lambda r: "/".join(f"{x:.1f}" for x in r)
     print(f"throughput: bank {bank_rate:.0f} templates/s (n_pix 1024, batches of 4096), "
           f"PE {pe_rate:.1f} steps/s (batch 8), GAN steps/s (batch 8, 50 steps each, order "
           f"xla, pallas, pallas, xla): xla {fmt(gan_rates['xla'])}, pallas "
-          f"{fmt(gan_rates['pallas'])}; ml_recenter (300 steps, 8 starts, n_pix 1024) "
+          f"{fmt(gan_rates['pallas'])}; ml_recenter as eager steps (300 steps, 8 starts, n_pix 1024) "
           f"{mlrc_s:.2f} s, {mlrc_launches} phasor launches [{card}]")
     print(f"throughput: GAN pallas on slice 3's residual route {res_rate:.1f} steps/s (batch 8); "
           f"conv kernel launches per GAN step under pallas: default recipe "
@@ -1699,6 +2120,9 @@ def main():
           + "; ".join(f"{k} on {fmt(v[True])}, off {fmt(v[False])}" for k, v in det_rates.items())
           + f" [{card}]")
 
+    # ---- 15. slice 9: the fused step loops as CUDA-graph replays -------------
+    launches_9 = slice9(cli_main, P, CV, build, card, cloud_5, mlrc_eager)
+
     def worst(table):
         """The timed shape with the largest kernel / plain ratio."""
         shape, (k, p) = max(table.items(), key=lambda kv: kv[1][0] / kv[1][1])
@@ -1728,7 +2152,8 @@ def main():
                              "slice 5": launches_5["phasor"],
                              **{f"slice 6 {k}": v[0] for k, v in launches_6.items()},
                              **{f"slice 7 {k}": v[0] for k, v in launches_7.items()},
-                             "slice 8": launches_8[0]},
+                             "slice 8": launches_8[0],
+                             **{f"slice 9 {k}": v[0] for k, v in launches_9.items()}},
     }, {
         "name": "conv1d_same_f32", "route": "cuda",
         "source": "gennet_tpu_torch/csrc/conv1d_same.cu",
@@ -1742,7 +2167,8 @@ def main():
                              "slice 5": launches_5["conv"],
                              **{f"slice 6 {k}": v[1] for k, v in launches_6.items()},
                              **{f"slice 7 {k}": v[1] for k, v in launches_7.items()},
-                             "slice 8": launches_8[1]},
+                             "slice 8": launches_8[1],
+                             **{f"slice 9 {k}": v[1] for k, v in launches_9.items()}},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -42,6 +42,7 @@ is ``plots=True`` without matplotlib.
 
 import copy
 import dataclasses
+import functools
 import glob
 import json
 import os
@@ -66,10 +67,11 @@ from gennet_tpu_torch.physics import psd as psd_mod
 from gennet_tpu_torch.physics.burst import make_burst_bank, sine_gaussian
 from gennet_tpu_torch.train.checkpoints import (CheckpointManager, save_posterior_snapshot,
                                                 state_dict_of)
-from gennet_tpu_torch.train.cnn import CNNConfig, cnn_step, init_cnn, normalize_max
+from gennet_tpu_torch.train.cnn import (CNNConfig, cnn_step, init_cnn, make_cnn_step_scan,
+                                        normalize_max)
 from gennet_tpu_torch.train.cnn import predict as cnn_predict
 from gennet_tpu_torch.train.gan import (GANConfig, GANState, gan_step, init_gan, knobs_from_cfg,
-                                        sample_generator)
+                                        make_gan_step, make_gan_step_scan, sample_generator)
 from gennet_tpu_torch.train.mesh import DataMesh, check_rows, is_main, rank_generator
 from gennet_tpu_torch.train.metrics import MetricLogger, fetch_metrics
 
@@ -435,9 +437,18 @@ def run_bbh(cfg: BBHConfig, *, device, mesh: DataMesh | None = None):
     # each rank trains on its block of the bank's rows
     pe_bank, pe_targets = ((bank, targets) if mesh is None
                            else (mesh.shard_rows(bank), mesh.shard_rows(targets)))
-    # i counts completed updates
-    for i in range(start + 1, cfg.pe_iters + 1):
-        pe_state, m = cnn_step(pe_state, pe_bank, pe_targets, pe_gen, cfg=pe_cfg, mesh=mesh)
+    # the reference's chunk rule (ref :1329-1332): pe_cadence iterations
+    # per call where the schedule, the checkpoints and the start allow
+    pe_chunk = cfg.pe_cadence if (cfg.pe_cadence > 1 and cfg.pe_iters % cfg.pe_cadence == 0
+                                  and cfg.ckpt_every % cfg.pe_cadence == 0
+                                  and start % cfg.pe_cadence == 0) else 1
+    pe_step = (make_cnn_step_scan(pe_model, pe_cfg, pe_chunk, mesh=mesh) if pe_chunk > 1
+               else functools.partial(cnn_step, cfg=pe_cfg, mesh=mesh))
+    for i0 in range(start, cfg.pe_iters, pe_chunk):
+        pe_state, m = pe_step(pe_state, pe_bank, pe_targets, pe_gen)
+        if pe_chunk > 1:
+            m = {k: v[-1] for k, v in m.items()}
+        i = i0 + pe_chunk  # completed updates
         if main and i % cfg.pe_cadence == 0:
             m = fetch_metrics(m)
             log.log(i, m)
@@ -509,6 +520,14 @@ def run_bbh(cfg: BBHConfig, *, device, mesh: DataMesh | None = None):
         if gan_extra:
             gen.set_state(gan_extra["gen"])
     start = gan_state.step
+    # the reference's chunk rule (ref :1419-1423): cadence iterations per
+    # call where the schedule, the evals, the checkpoints and the start allow
+    chunk = cfg.cadence if (cfg.cadence > 1 and cfg.gan_iters % cfg.cadence == 0
+                            and cfg.eval_cadence % cfg.cadence == 0
+                            and cfg.ckpt_every % cfg.cadence == 0
+                            and start % cfg.cadence == 0) else 1
+    gan_step_fn = (make_gan_step_scan(G, D, gan_cfg, chunk, mesh=mesh) if chunk > 1
+                   else make_gan_step(G, D, gan_cfg, mesh=mesh))
 
     def gan_save(step, payload=None, gen_state=None):
         gan_ckpt.save(step, gan_state if payload is None else payload,
@@ -635,17 +654,35 @@ def run_bbh(cfg: BBHConfig, *, device, mesh: DataMesh | None = None):
     sel_score, sel_step = float("-inf"), None
     frozen_at = None
     log.steps_per_sec(start)  # reset the steps/sec window for the GAN phase
-    for i in range(start + 1, cfg.gan_iters + 1):  # i counts completed iterations
-        knobs = anneal_knobs if (cfg.anneal_frac > 0 and i - 1 >= anneal_start) else base_knobs
-        gan_state, m = gan_step(gan_state, gan_bank, measured, gen, knobs, cfg=gan_cfg,
-                                mesh=mesh)
+    # deferred metric flush (ref :1604-1633): a chunked loop logs the last
+    # cadence point while the device runs the next chunk; an eval and the
+    # end of the loop flush first
+    pending = None  # (step, metrics on the device) awaiting their log line
+
+    def flush():
+        nonlocal pending
+        if pending is not None:
+            i_p, mh = pending[0], fetch_metrics(pending[1])
+            pending = None
+            log.log(i_p, mh)
+            print(log.status_line(i_p, mh, log.steps_per_sec(i_p)))
+
+    for i0 in range(start, cfg.gan_iters, chunk):
+        i = i0 + chunk  # completed iterations
+        # the knobs of a chunk are those of its first step (ref :1628)
+        knobs = anneal_knobs if (cfg.anneal_frac > 0 and i0 >= anneal_start) else base_knobs
+        gan_state, m = gan_step_fn(gan_state, gan_bank, measured, gen, knobs)
+        if chunk > 1:
+            m = {k: v[-1] for k, v in m.items()}
         if main and i % cfg.cadence == 0:
-            mh = fetch_metrics(m)
-            log.log(i, mh)
-            print(log.status_line(i, mh, log.steps_per_sec(i)))
+            flush()
+            pending = (i, m)
+            if chunk == 1:
+                flush()
         if i % cfg.eval_cadence == 0:
             improved = freeze = False
             if main:
+                flush()
                 snapshots.append(_snapshot(gan_state))
                 ev = eval_posterior(list(snapshots), i)
                 improved = bool(ev["whiteness"] > best_white)
@@ -689,6 +726,7 @@ def run_bbh(cfg: BBHConfig, *, device, mesh: DataMesh | None = None):
                     plots.plot_beta_history(beta_hist, beta_steps, cfg.out_dir)
         if i % cfg.ckpt_every == 0:
             gan_save(i)
+    flush()
     gan_save(max(cfg.gan_iters, 1))
 
     # ---- final-state artefacts (the reference uses the last iteration's
@@ -1005,9 +1043,15 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device, mesh: DataMesh | None = No
             print("CNN PE restored from cache")
     else:
         pe_gen = _pe_generator(cfg.seed, device, mesh)
-        for i in range(1, cfg.pe_iters + 1):  # i counts completed updates
-            pe_state, m = cnn_step(pe_state, train_bank, train_pars, pe_gen, cfg=pe_cfg,
-                                   mesh=mesh)
+        # the reference's chunk rule (ref :309): cadence iterations per call
+        pe_chunk = cfg.cadence if (cfg.cadence > 1 and cfg.pe_iters % cfg.cadence == 0) else 1
+        pe_step = (make_cnn_step_scan(pe_model, pe_cfg, pe_chunk, mesh=mesh) if pe_chunk > 1
+                   else functools.partial(cnn_step, cfg=pe_cfg, mesh=mesh))
+        for i0 in range(0, cfg.pe_iters, pe_chunk):
+            pe_state, m = pe_step(pe_state, train_bank, train_pars, pe_gen)
+            if pe_chunk > 1:
+                m = {k: v[-1] for k, v in m.items()}
+            i = i0 + pe_chunk  # completed updates
             if main and i % cfg.cadence == 0:
                 m = fetch_metrics(m)
                 log.log(i, m)
@@ -1082,6 +1126,11 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device, mesh: DataMesh | None = No
         return wf, samples, route_elbo
 
     base_knobs, anneal_knobs, anneal_start = _anneal_knobs(gan_cfg, cfg)
+    # the reference's chunk rule (ref :350): cadence iterations per call; a
+    # restart's fresh modules are captured again
+    chunk = cfg.cadence if (cfg.cadence > 1 and cfg.gan_iters % cfg.cadence == 0) else 1
+    gan_step_fn = (make_gan_step_scan(G, D, gan_cfg, chunk, mesh=mesh) if chunk > 1
+                   else make_gan_step(G, D, gan_cfg, mesh=mesh))
     gm = gp.grid_moments(L, gx, gy) if main else None
     best_score = -1.0
     sel_score, sel_step = float("-inf"), None
@@ -1104,10 +1153,13 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device, mesh: DataMesh | None = No
                 for path in glob.glob(os.path.join(snap_dir, "posterior_samples_*.npz")):
                     os.remove(path)
         n_cad = 0
-        for i in range(1, cfg.gan_iters + 1):  # i counts completed iterations
-            knobs = anneal_knobs if (cfg.anneal_frac > 0 and i - 1 >= anneal_start) else base_knobs
-            gan_state, m = gan_step(gan_state, train_bank, measured, gen, knobs, cfg=gan_cfg,
-                                    mesh=mesh)
+        for i0 in range(0, cfg.gan_iters, chunk):
+            i = i0 + chunk  # completed iterations
+            # the knobs of a chunk are those of its first step (ref :471)
+            knobs = anneal_knobs if (cfg.anneal_frac > 0 and i0 >= anneal_start) else base_knobs
+            gan_state, m = gan_step_fn(gan_state, train_bank, measured, gen, knobs)
+            if chunk > 1:
+                m = {k: v[-1] for k, v in m.items()}
             if i % cfg.cadence != 0:
                 continue
             n_cad += 1
@@ -1305,7 +1357,7 @@ def run_blob_toy(cfg: BlobToyConfig, *, device, mesh: DataMesh | None = None):
     from gennet_tpu_torch.models.image_models import ImageMCDropoutPE, ImagePE
     from gennet_tpu_torch.models.layers import reset_module
     from gennet_tpu_torch.physics.blobs import blob_grid_posterior, make_blob_bank
-    from gennet_tpu_torch.train.cnn import adam
+    from gennet_tpu_torch.runtime.optim import adam
 
     if mesh is not None:
         check_rows(cfg.n_signals, mesh.world, "the blob bank (n_signals)")

@@ -97,12 +97,24 @@ def _antenna_projection_cached(event_time, ra, dec, psi, det, iota):
 _PEAK_SEARCH = 64
 
 
+_FREQS: dict = {}  # (nf, T_obs·safe, device) → the FD grid there, made once
+
+
+def _device_freqs(cfg: BankConfig, device) -> torch.Tensor:
+    """``cfg.freqs()`` in float32 on ``device``, copied there once, so that
+    a synthesis makes no host-to-device copy (a CUDA graph records it)."""
+    key = (cfg.nf, cfg.T_obs * cfg.safe, str(device))
+    if key not in _FREQS:
+        _FREQS[key] = torch.as_tensor(cfg.freqs(), dtype=torch.float32, device=device)
+    return _FREQS[key]
+
+
 def whitened_ampphase(m1, m2, psd, cfg: BankConfig):
     """Whitened, antenna-projected FD templates as (amp, phase), each (B, nf),
     plus the frequency grid (nf,), on psd's device."""
     dtype = torch.float32
     device = psd.device
-    freqs = torch.as_tensor(cfg.freqs(), dtype=dtype, device=device)
+    freqs = _device_freqs(cfg, device)
     m1 = torch.as_tensor(m1, dtype=dtype, device=device).reshape(-1)
     m2 = torch.as_tensor(m2, dtype=dtype, device=device).reshape(-1)
     amp, phase = waveform.imrphenomd_ampphase(freqs, m1, m2, dist_mpc=cfg.dist_mpc,
@@ -115,7 +127,7 @@ def whitened_ampphase(m1, m2, psd, cfg: BankConfig):
     # convention, so whitened templates share unit-variance noise's units
     amp = amp * (gain * K * cfg.fs)
     phase = phase + (delta + 2.0 * cfg.phi)
-    phase = phase + 2.0 * np.pi * freqs * torch.tensor(tdelay, dtype=dtype, device=device)
+    phase = phase + 2.0 * np.pi * freqs * torch.full((), tdelay, dtype=dtype, device=device)
     return amp, phase, freqs
 
 

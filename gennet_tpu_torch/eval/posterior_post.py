@@ -29,6 +29,9 @@ Conventions of the port:
 import numpy as np
 import torch
 
+from gennet_tpu_torch.runtime import graphs
+from gennet_tpu_torch.runtime.optim import adam
+
 
 def _f32(x, device=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
@@ -111,13 +114,18 @@ def ml_recenter(samples, synth_fn, measured, gen: torch.Generator, steps: int = 
                 n_starts: int = 8, lr: float = 0.1, jitter=None) -> np.ndarray:
     """Shift a cloud so its centre sits at the maximum-likelihood point.
 
-    θ* = argmin ‖d − s(θ)‖² by Adam (``torch.optim.Adam``'s defaults, which
-    are optax's) from the ``n_starts`` starts: half the best-likelihood
-    draws, half 2σ-jittered around the centre; in z-units, θ = θ0 + z·σ_cloud.
-    The gradient runs through ``synth_fn`` with autograd, so through the
-    phasor kernel's VJP on the card. The cloud is then translated so its
-    mean is the best finite candidate among the refined and unrefined
-    starts (no shift if none is finite); dispersion is untouched.
+    θ* = argmin ‖d − s(θ)‖² by Adam (optax's defaults) from the ``n_starts``
+    starts: half the best-likelihood draws, half 2σ-jittered around the
+    centre; in z-units, θ = θ0 + z·σ_cloud. The gradient runs through
+    ``synth_fn`` with autograd, so through the phasor kernel's VJP on the
+    card. The cloud is then translated so its mean is the best finite
+    candidate among the refined and unrefined starts (no shift if none is
+    finite); dispersion is untouched.
+
+    The Adam steps are the reference's ``lax.scan``: on a card, replays of
+    one captured step (the synthesis, its gradient and a capturable Adam
+    on a fixed ``z``; :class:`~gennet_tpu_torch.runtime.graphs.StepGraph`),
+    so ``synth_fn`` must make no host copy or sync; elsewhere eager steps.
 
     ``jitter``: optional (max(k//2, 1), P) unit normal draws.
     """
@@ -137,14 +145,19 @@ def ml_recenter(samples, synth_fn, measured, gen: torch.Generator, steps: int = 
         starts = torch.cat([s[order[: k - jit.shape[0]]], jit])
 
     z = torch.zeros_like(starts, requires_grad=True)
-    opt = torch.optim.Adam([z], lr=lr)
-    for _ in range(steps):
+    opt = adam([z], lr, 0.9)
+
+    def step():
         # per-start residual power; the sum is fine, the starts are independent
         loss = torch.sum((d - synth_fn(starts + z * sig[None, :])) ** 2)
         # a forward model that ignores θ has a zero gradient, as under jax.grad
         g = torch.autograd.grad(loss, z, allow_unused=True)[0] if loss.requires_grad else None
         z.grad = torch.zeros_like(z) if g is None else g
         opt.step()
+        return {"loss": loss.detach()}
+
+    graph = graphs.StepGraph("ml_recenter step", graphs.graphable(z.device))
+    graph.run(steps, step, lambda: [z, starts, sig, d, *graphs.optimizer_tensors(opt)])
 
     with torch.no_grad():
         theta = torch.cat([starts + z * sig[None, :], starts])

@@ -247,7 +247,10 @@ def dropout(x: torch.Tensor, rate: float, active: bool, gen: torch.Generator | N
         return x
     if gen is None:
         raise ValueError("dropout is active but no torch.Generator was given")
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    if isinstance(gen, SharedMasks):
+        keep = gen.keep(x.shape, x.device, rate)
+    else:
+        keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -289,19 +292,44 @@ class PermaDropout(nn.Module):
         return dropout(x, self.rate, True, gen)
 
 
+class SharedMasks:
+    """The dropout masks of one set of passes through a network: the first
+    pass draws each :func:`dropout` mask from ``gen`` and records it, and
+    every later pass (see :func:`replay`) takes the recorded masks in the
+    same order. So the generator advances once, by exactly what one pass
+    draws, and nothing is rewound: a CUDA-graph capture records it as it
+    runs eagerly."""
+
+    def __init__(self, gen: torch.Generator):
+        self.gen = gen
+        self._masks = []
+        self._next = 0
+
+    def rewind(self) -> "SharedMasks":
+        self._next = 0
+        return self
+
+    def keep(self, shape, device, rate: float) -> torch.Tensor:
+        if self._next < len(self._masks):
+            keep = self._masks[self._next]
+            if keep.shape != shape:
+                raise ValueError(f"a replayed pass asks for a mask of shape {tuple(shape)} where "
+                                 f"the first pass drew {tuple(keep.shape)}")
+        else:
+            keep = torch.rand(shape, generator=self.gen, device=device) >= rate
+            self._masks.append(keep)
+        self._next += 1
+        return keep
+
+
 def replay(gen: torch.Generator | None):
-    """A callable that rewinds ``gen`` to its state now and returns it, so
-    that every dropout pass it feeds draws the same masks: the reference
-    drives several passes with one dropout key. ``None`` stays ``None``."""
+    """A callable that starts one more pass on the same dropout masks: the
+    first pass draws them from ``gen``, the later ones reuse them
+    (:class:`SharedMasks`), as the reference drives several passes with one
+    dropout key. ``None`` stays ``None``."""
     if gen is None:
         return lambda: None
-    state = gen.get_state()
-
-    def rewound():
-        gen.set_state(state)
-        return gen
-
-    return rewound
+    return SharedMasks(gen).rewind
 
 
 class Conv2d(nn.Module):

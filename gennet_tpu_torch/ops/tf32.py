@@ -7,6 +7,7 @@ registers; the constant ones (conv weights, iDFT tables) are split here
 once, in torch, and handed to the kernels as two tensors.
 """
 
+import contextlib
 import weakref
 
 import torch
@@ -32,19 +33,41 @@ def split_tf32(x: torch.Tensor) -> tuple:
 
 
 _PACKS: dict = {}  # (tag, id of each source) → (weakrefs, (version, data_ptr)s, pack)
+_CAPTURE: list = []  # the pack caches of the CUDA-graph captures in progress, innermost last
 
 
 def cached_pack(tag: str, sources: tuple, make):
     """``make()``, reused while every tensor in ``sources`` is the same live
     object with the same ``_version`` and ``data_ptr()``: an in-place update
     (an optimizer step) or a freed tensor forces a new pack, and an entry
-    is dropped when one of its sources is freed."""
+    is dropped when one of its sources is freed.
+
+    Inside :func:`capturing` the pack is made in the graph and reused only
+    within that capture, under the same rule: a replay fills it from the
+    sources as they are at that point of the replay, so no pack made
+    outside the graph is read there, and none made inside it is served
+    after. A replay changes its sources without a ``_version`` bump, so
+    the replaying code bumps their versions itself
+    (``torch.autograd.graph.increment_version``) before eager code runs."""
     key = (tag,) + tuple(id(t) for t in sources)
     state = tuple((t._version, t.data_ptr()) for t in sources)
-    hit = _PACKS.get(key)
+    cache = _CAPTURE[-1] if _CAPTURE else _PACKS
+    hit = cache.get(key)
     if hit is not None and all(r() is t for r, t in zip(hit[0], sources)) and hit[1] == state:
         return hit[2]
     pack = make()
-    refs = tuple(weakref.ref(t, lambda _, k=key: _PACKS.pop(k, None)) for t in sources)
-    _PACKS[key] = (refs, state, pack)
+    # the capture's dict holds its packs until the capture ends
+    drop = (lambda _, k=key: _PACKS.pop(k, None)) if cache is _PACKS else None
+    cache[key] = (tuple(weakref.ref(t, drop) for t in sources), state, pack)
     return pack
+
+
+@contextlib.contextmanager
+def capturing():
+    """The pack cache of one CUDA-graph capture (see :func:`cached_pack`),
+    dropped when the capture ends."""
+    _CAPTURE.append({})
+    try:
+        yield
+    finally:
+        _CAPTURE.pop()

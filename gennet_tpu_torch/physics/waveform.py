@@ -108,6 +108,24 @@ _FITS = {
 
 _FIT_NAMES = sorted(_FITS)
 _FIT_TABLE = np.array([_FITS[k] for k in _FIT_NAMES])  # (19, 11)
+_FIT_TABLES: dict = {}  # (dtype, device) → _FIT_TABLE there, copied once
+
+
+def _fit_table(dtype, device) -> torch.Tensor:
+    """_FIT_TABLE on ``device``, copied there once: the synthesis then makes
+    no host-to-device copy, so a CUDA graph can record it."""
+    key = (dtype, str(device))
+    if key not in _FIT_TABLES:
+        _FIT_TABLES[key] = torch.as_tensor(_FIT_TABLE, dtype=dtype, device=device)
+    return _FIT_TABLES[key]
+
+
+def _scalar(x, like: torch.Tensor) -> torch.Tensor:
+    """``x`` (a number or a tensor) as a tensor of ``like``'s dtype on its
+    device; a number is filled in there, not copied from the host."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=like.dtype, device=like.device)
+    return torch.full((), x, dtype=like.dtype, device=like.device)
 
 
 def _log(x):
@@ -135,7 +153,7 @@ def _eval_fits(eta, chi_pn):
     # Sum term by term with fused multiply-adds, the order of the
     # reference's float32 dot: the product of two float32 values is exact
     # in float64, so one float64 add and one rounding emulate the FMA.
-    tbl = torch.as_tensor(_FIT_TABLE, dtype=basis.dtype, device=basis.device)
+    tbl = _fit_table(basis.dtype, basis.device)
     wide = torch.float64
     vals = torch.zeros(basis.shape[:-1] + (tbl.shape[0],), dtype=basis.dtype, device=basis.device)
     for j in range(tbl.shape[1]):
@@ -203,7 +221,7 @@ class _MfPowers:
     """Fractional powers of Mf from one cube root and a few square roots."""
 
     def __init__(self, Mf, like: torch.Tensor):
-        Mf = torch.as_tensor(Mf, dtype=like.dtype, device=like.device)
+        Mf = _scalar(Mf, like)
         self.one = Mf
         self.third = torch.pow(Mf, 1.0 / 3.0)      # Mf > 0 throughout
         self.two_thirds = self.third * self.third
@@ -457,7 +475,9 @@ def _intermediate_amp_poly(f1, f2, f3, v1, v2, v3, d1, d3):
         dim=-2,
     )
     b = torch.stack([v1 * one, d1u * one, v2 * one, v3 * one, d3u * one], dim=-1)
-    coeff = torch.linalg.solve(A, b[..., None])[..., 0]
+    # solve_ex: solve without its check of the factorisation on the host,
+    # which a CUDA graph cannot record (A is never singular here)
+    coeff = torch.linalg.solve_ex(A, b[..., None])[0][..., 0]
     return coeff, span
 
 
@@ -538,7 +558,7 @@ def imrphenomd_ampphase(freqs, m1, m2, chi1=0.0, chi2=0.0,
     v3 = _amp_mr(fa3, c, f_rd, f_damp)
     d3 = _damp_mr(fa3, c, f_rd, f_damp)
     delta, span = _intermediate_amp_poly(
-        torch.as_tensor(fa1, dtype=dtype, device=eta.device), fa2, fa3,
+        _scalar(fa1, eta), fa2, fa3,
         v1, v2, v3, d1, d3,
     )
 

@@ -19,7 +19,7 @@ def whitening_gain(psd: torch.Tensor, sample_rate: float) -> torch.Tensor:
     """The real per-bin whitening gain sqrt(2/(psd·fs)) with undefined bins
     and DC zeroed: whitening h̃ = amp·e^{−iΨ} scales ``amp`` by this."""
     gain = torch.sqrt(2.0 * _inverse_psd(psd) / sample_rate)
-    gain[..., 0] = 0.0
+    gain[..., 0].zero_()  # on the device: no host copy, so a CUDA graph can record it
     return gain
 
 

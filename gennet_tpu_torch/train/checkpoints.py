@@ -49,6 +49,29 @@ def _device_of(state) -> torch.device:
     return torch.device("cpu")
 
 
+# the optimizer settings that follow the live optimizer's device, not the
+# checkpoint's: a card's Adam is the capturable form (train/cnn.py::adam)
+_DEVICE_KEYS = ("capturable", "foreach", "fused", "differentiable")
+
+
+def _load_optimizer(opt: torch.optim.Optimizer, saved: dict):
+    """``opt.load_state_dict(saved)``, keeping the live optimizer's device
+    form: its capturable flags (so the step counts land on its device) and
+    its ``lr`` tensor, which a captured step reads, given the saved value.
+    A checkpoint written on another device restores into either form."""
+    groups = [{**sg, **{k: g[k] for k in _DEVICE_KEYS if k in g}}
+              for sg, g in zip(saved["param_groups"], opt.param_groups)]
+    lrs = [g["lr"] for g in opt.param_groups]
+    opt.load_state_dict({**saved, "param_groups": groups})
+    for g, lr in zip(opt.param_groups, lrs):
+        if isinstance(lr, torch.Tensor):
+            with torch.no_grad():
+                lr.copy_(torch.as_tensor(g["lr"]))
+            g["lr"] = lr
+        elif isinstance(g["lr"], torch.Tensor):
+            g["lr"] = float(g["lr"])
+
+
 def _load_into(state, saved: dict):
     """Load a :func:`state_dict_of` dict into ``state`` in place: modules,
     optimisers and schedules through their ``load_state_dict``, tensor
@@ -58,7 +81,9 @@ def _load_into(state, saved: dict):
     device = _device_of(state)
     for f in fields(state):
         v, s = getattr(state, f.name), saved[f.name]
-        if hasattr(v, "load_state_dict"):
+        if isinstance(v, torch.optim.Optimizer):
+            _load_optimizer(v, s)
+        elif hasattr(v, "load_state_dict"):
             if s is not None:
                 v.load_state_dict(s)
         elif isinstance(s, dict):

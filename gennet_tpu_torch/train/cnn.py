@@ -2,8 +2,11 @@
 
 Random bank batch, noise augmentation of the first ``noise_frac`` of the
 batch with N(0, U(0, 5)) (ref: bbhMahoGANy.py:1160-1161), multi-output MSE
-on (mc, q), Adam(b1 = 0.5) with optax's cosine decay as a ``LambdaLR``, and
-an EMA of the parameters for evaluation.
+on (mc, q), Adam(b1 = 0.5) with optax's cosine decay, and an EMA of the
+parameters for evaluation. On the CPU the decay is a ``LambdaLR``; on a
+card Adam is the capturable form and the decay an expression of its step
+count on the device, so that :func:`make_cnn_step_scan` can replay the
+step as a CUDA graph (:mod:`gennet_tpu_torch.runtime.graphs`).
 
 The state owns its module and updates it in place, so the step functions
 take no separate ``model`` argument. Randomness comes from an explicit
@@ -21,6 +24,8 @@ import torch
 from torch import nn
 
 from gennet_tpu_torch.models.layers import reset_module
+from gennet_tpu_torch.runtime import graphs
+from gennet_tpu_torch.runtime.optim import adam
 from gennet_tpu_torch.train import losses as L
 from gennet_tpu_torch.train.mesh import DataMesh, running_stats
 
@@ -62,9 +67,15 @@ def cosine_decay(decay_steps: int, alpha: float):
     return f
 
 
-def adam(params, lr: float, beta1: float):
-    """optax.adam: m̂/(√v̂ + 1e-8), b2 = 0.999."""
-    return torch.optim.Adam(params, lr=lr, betas=(beta1, 0.999), eps=1e-8)
+def _decay_lr_(opt: torch.optim.Optimizer, cfg: CNNConfig):
+    """What ``LambdaLR(cosine_decay)`` does after an update, on the device:
+    lr ← cfg.lr · cosine_decay(count), count being Adam's step count (the
+    updates done), in float32."""
+    group = opt.param_groups[0]
+    c = torch.clamp(opt.state[group["params"][0]]["step"], max=float(cfg.lr_decay_steps))
+    alpha = cfg.lr_min_frac
+    f = (1.0 - alpha) * 0.5 * (1.0 + torch.cos(math.pi * c / cfg.lr_decay_steps)) + alpha
+    group["lr"].copy_(cfg.lr * f)
 
 
 @dataclass
@@ -81,9 +92,10 @@ def init_cnn(gen: torch.Generator, model: nn.Module, cfg: CNNConfig, device) -> 
     generator), move it to ``device`` and build its optimiser."""
     reset_module(model, gen).to(device)
     opt = adam(model.parameters(), cfg.lr, cfg.beta1)
+    # on a card the decay is _decay_lr_, on the device
     sched = (torch.optim.lr_scheduler.LambdaLR(opt, cosine_decay(cfg.lr_decay_steps,
                                                                  cfg.lr_min_frac))
-             if cfg.lr_decay_steps > 0 else None)
+             if cfg.lr_decay_steps > 0 and not opt.defaults["capturable"] else None)
     return CNNState(model=model, opt=opt, sched=sched)
 
 
@@ -137,6 +149,8 @@ def cnn_update(state: CNNState, x: torch.Tensor, y: torch.Tensor, *, cfg: CNNCon
     state.opt.step()
     if state.sched is not None:
         state.sched.step()
+    elif cfg.lr_decay_steps > 0 and state.opt.defaults["capturable"]:
+        _decay_lr_(state.opt, cfg)
     if mesh is not None:
         mesh.pmean_(running_stats(model))
     if cfg.ema_decay > 0.0:
@@ -152,6 +166,43 @@ def cnn_step(state: CNNState, bank: torch.Tensor, targets: torch.Tensor, gen: to
     stream."""
     x, y = draw_cnn_batch(gen, bank, targets, cfg)
     return cnn_update(state, x, y, cfg=cfg, gen=gen, mesh=mesh)
+
+
+def make_cnn_step(model: nn.Module, cfg: CNNConfig, mesh: DataMesh | None = None):
+    """One CNN iteration as a step function (the JAX package's
+    ``make_cnn_step``): ``step(state, bank, targets, gen) → (state,
+    metrics)``. ``model`` is the state's module."""
+    return lambda state, bank, targets, gen: cnn_step(state, bank, targets, gen, cfg=cfg,
+                                                      mesh=mesh)
+
+
+def state_tensors(state: CNNState) -> list:
+    """Every tensor a CNN step keeps between iterations."""
+    return (graphs.module_tensors(state.model) + graphs.optimizer_tensors(state.opt)
+            + list((state.ema or {}).values()))
+
+
+def make_cnn_step_scan(model: nn.Module, cfg: CNNConfig, n_steps: int,
+                       mesh: DataMesh | None = None):
+    """``n_steps`` CNN iterations as one call (the JAX package's
+    ``make_cnn_step_scan``, a ``lax.scan`` of the step): ``step(state,
+    bank, targets, gen) → (state, metrics stacked over the n_steps
+    iterations)``. On a card the iterations are replays of one captured
+    step (:class:`~gennet_tpu_torch.runtime.graphs.StepGraph`, exposed as
+    ``step.graph``), elsewhere eager steps."""
+    device = next(model.parameters()).device
+    graph = graphs.StepGraph("CNN step", graphs.graphable(device, mesh, "the CNN step"))
+
+    def step(state, bank, targets, gen):
+        start = state.step
+        m = graph.run(n_steps,
+                      lambda: cnn_step(state, bank, targets, gen, cfg=cfg, mesh=mesh)[1],
+                      lambda: state_tensors(state) + [bank, targets], (gen,))
+        state.step = start + n_steps
+        return state, m
+
+    step.graph = graph
+    return step
 
 
 def predict(state: CNNState, x: torch.Tensor, chunk: int = 512, use_ema: bool = False):

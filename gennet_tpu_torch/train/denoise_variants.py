@@ -19,7 +19,7 @@ from torch import nn
 
 from gennet_tpu_torch.models.generator import DenseGenerator
 from gennet_tpu_torch.models.layers import Dense, replay, reset_module
-from gennet_tpu_torch.train.cnn import adam
+from gennet_tpu_torch.runtime.optim import adam
 from gennet_tpu_torch.train.softmax_gan import (SoftmaxGANState, discriminator_update,
                                                 generator_update)
 

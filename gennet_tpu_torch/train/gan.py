@@ -7,7 +7,10 @@ then the generator's adversarial step(s) against the updated
 discriminator. As in the reference there are three Adam states — D, the
 adversarial G route and the residual G route (ref: burstMahoGANy.py:652-668)
 — and the D update, together with D's Adam state, is held back while D's
-batch accuracy is at or above ``d_acc_gate``.
+batch accuracy is at or above ``d_acc_gate``: D's Adam step runs, and its
+result (parameters, both moments, the count) is kept or dropped on the
+device, as the reference's ``_where_tree`` does, so no step waits on the
+host.
 
 The state owns its modules and optimisers and is updated in place.
 :func:`draw_gan_batch` consumes all of an iteration's randomness into a
@@ -21,16 +24,24 @@ G step are averaged across the ranks before their Adam step, ``d_acc`` is
 averaged before the balance gate (so every rank takes the same branch),
 the losses are rank means, BatchNorm normalises each rank's batch with its
 own statistics, and the running statistics are averaged after the step.
+
+:func:`make_gan_step_scan` runs a chunk of iterations as one call (the
+reference's ``lax.scan``), on a card as replays of one captured iteration
+(:mod:`gennet_tpu_torch.runtime.graphs`). Every branch the step takes on the
+host is fixed by the config, never by a knob's value, and the knobs may be
+0-d tensors, which a graph reads at each replay.
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import torch
 from torch import nn
 
 from gennet_tpu_torch.models.layers import replay, reset_module
+from gennet_tpu_torch.runtime import graphs
+from gennet_tpu_torch.runtime.optim import adam, init_adam_state
 from gennet_tpu_torch.train import losses as L
-from gennet_tpu_torch.train.cnn import adam, ema_update, param_copy
+from gennet_tpu_torch.train.cnn import ema_update, param_copy
 from gennet_tpu_torch.train.mesh import DataMesh, running_stats
 
 
@@ -70,7 +81,8 @@ class GANConfig:
 @dataclass
 class GANKnobs:
     """Continuous training knobs (``gennet_tpu.train.gan.GANKnobs``), read
-    at every update, so a run can change them between steps."""
+    at every update, so a run can change them between steps. Each is a
+    number or a 0-d tensor on the step's device (:func:`knob_tensors`)."""
 
     d_acc_gate: float        # D updates only while d_acc < gate; ≥ 1 ⇒ always
     diversity_weight: float
@@ -87,6 +99,22 @@ def knobs_from_cfg(cfg: GANConfig) -> GANKnobs:
                     res_loss_weight=cfg.res_loss_weight,
                     instance_noise=cfg.d_instance_noise, r1_gamma=cfg.r1_gamma,
                     adv_weight=1.0)
+
+
+def knob_tensors(knobs: GANKnobs, device, into: GANKnobs | None = None) -> GANKnobs:
+    """``knobs`` as 0-d float32 tensors on ``device``, the reference's knob
+    operands; with ``into``, written into its tensors (a captured step reads
+    them at each replay). Filled on the device: nothing waits on the host."""
+    if into is None:
+        into = GANKnobs(**{f.name: torch.zeros((), dtype=torch.float32, device=device)
+                           for f in fields(GANKnobs)})
+    for f in fields(GANKnobs):
+        v, t = getattr(knobs, f.name), getattr(into, f.name)
+        if isinstance(v, torch.Tensor):
+            t.copy_(v)
+        else:
+            t.fill_(v)
+    return into
 
 
 @dataclass
@@ -192,6 +220,21 @@ def _grad_norm(module: nn.Module) -> torch.Tensor:
     return _global_norm(p.grad for p in module.parameters())
 
 
+def _gated_step(opt: torch.optim.Optimizer, update: torch.Tensor):
+    """``opt.step()`` kept where the 0-d bool ``update`` holds: the
+    parameters, both moments and the count are selected on the device
+    (the reference's ``_where_tree``), so a held-back step leaves them bit
+    for bit as they were, the state of a fresh optimizer included."""
+    init_adam_state(opt)
+    kept = [t for g in opt.param_groups for p in g["params"]
+            for t in (p, *opt.state[p].values())]
+    before = [t.detach().clone() for t in kept]
+    opt.step()
+    with torch.no_grad():
+        for t, b in zip(kept, before):
+            torch.where(update, t, b, out=t)
+
+
 def gan_update(state: GANState, batch: GANBatch, measured: torch.Tensor,
                knobs: GANKnobs | None = None, *, cfg: GANConfig, mesh: DataMesh | None = None):
     """The deterministic half of an iteration, in place: the D update (held
@@ -239,10 +282,9 @@ def gan_update(state: GANState, batch: GANBatch, measured: torch.Tensor,
         probes["x_fake_absmax"] = torch.max(torch.abs(x_fake))
         probes["d_logit_absmax"] = torch.maximum(torch.max(torch.abs(lr_.detach())),
                                                  torch.max(torch.abs(lf_.detach())))
-    # automatic D/G balance: skip the D update (and its Adam moments and
-    # count) while D already wins; gate ≥ 1 ⇒ always update
-    if bool(d_acc < knobs.d_acc_gate):
-        state.d_opt.step()
+    # automatic D/G balance: hold back the D update (and its Adam moments
+    # and count) while D already wins; gate ≥ 1 ⇒ always update
+    _gated_step(state.d_opt, d_acc < knobs.d_acc_gate)
 
     # ---------------- residual route (burst scheme) ---------------------
     res_loss = torch.zeros((), device=d_acc.device)
@@ -286,9 +328,11 @@ def gan_update(state: GANState, batch: GANBatch, measured: torch.Tensor,
                 g_loss = L.bce_with_logits(logits, 1.0)
             g_loss = knobs.adv_weight * g_loss
             # mode-seeking term: distinct latents must map to distinct
-            # waveforms (at weight 0 it adds exactly 0, so it is skipped)
+            # waveforms; at weight 0 it adds exactly 0. Computed whenever
+            # the batch splits in two (B ≥ 2), as in the reference, whatever
+            # the weight: a knob never picks a host branch
             h = B // 2
-            if h >= 1 and knobs.diversity_weight != 0.0:
+            if h >= 1:
                 num = torch.mean(torch.abs(xf[:h] - xf[h : 2 * h]))
                 den = torch.mean(torch.abs(z3[:h] - z3[h : 2 * h])) + 1e-8
                 g_loss = g_loss + knobs.diversity_weight / (num / den + 1e-5)
@@ -336,6 +380,54 @@ def gan_step(state: GANState, bank: torch.Tensor, measured: torch.Tensor, gen: t
     ``mesh``, ``bank`` is this rank's block of rows and ``gen`` its stream."""
     batch = draw_gan_batch(gen, bank, cfg)
     return gan_update(state, batch, measured, knobs, cfg=cfg, mesh=mesh)
+
+
+def make_gan_step(generator: nn.Module, discriminator: nn.Module, cfg: GANConfig,
+                  mesh: DataMesh | None = None):
+    """One GAN iteration as a step function (the JAX package's
+    ``make_gan_step``): ``step(state, bank, measured, gen, knobs=None) →
+    (state, metrics)``, the config's knobs by default. ``generator`` and
+    ``discriminator`` are the state's modules."""
+    base = knobs_from_cfg(cfg)
+    return lambda state, bank, measured, gen, knobs=None: gan_step(
+        state, bank, measured, gen, base if knobs is None else knobs, cfg=cfg, mesh=mesh)
+
+
+def state_tensors(state: GANState) -> list:
+    """Every tensor a GAN step keeps between iterations."""
+    return (graphs.module_tensors(state.generator, state.discriminator)
+            + graphs.optimizer_tensors(state.g_opt, state.d_opt, state.g_res_opt)
+            + list((state.g_ema or {}).values()))
+
+
+def make_gan_step_scan(generator: nn.Module, discriminator: nn.Module, cfg: GANConfig,
+                       n_steps: int, mesh: DataMesh | None = None):
+    """``n_steps`` GAN iterations as one call (the JAX package's
+    ``make_gan_step_scan``, a ``lax.scan`` of the step): ``step(state, bank,
+    measured, gen, knobs=None) → (state, metrics stacked over the n_steps
+    iterations)``. The chunk's knobs (the config's by default) are copied
+    into 0-d tensors the step reads. On a card the iterations are replays
+    of one captured step (:class:`~gennet_tpu_torch.runtime.graphs.StepGraph`,
+    exposed as ``step.graph``), elsewhere eager steps."""
+    device = next(generator.parameters()).device
+    graph = graphs.StepGraph("GAN step", graphs.graphable(device, mesh, "the GAN step"))
+    base = knobs_from_cfg(cfg)
+    static = knob_tensors(base, device)
+
+    def step(state, bank, measured, gen, knobs=None):
+        knob_tensors(base if knobs is None else knobs, device, into=static)
+        start = state.step
+        m = graph.run(n_steps,
+                      lambda: gan_step(state, bank, measured, gen, static, cfg=cfg, mesh=mesh)[1],
+                      lambda: state_tensors(state) + [bank, measured,
+                                                      *(getattr(static, f.name)
+                                                        for f in fields(GANKnobs))],
+                      (gen,))
+        state.step = start + n_steps
+        return state, m
+
+    step.graph = graph
+    return step
 
 
 def sample_generator(generator: nn.Module, state: GANState, gen: torch.Generator, n: int,

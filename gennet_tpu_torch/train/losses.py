@@ -5,11 +5,20 @@ import torch
 import torch.nn.functional as F
 
 
+def _labels(labels, like: torch.Tensor) -> torch.Tensor:
+    """``labels`` (a number or a tensor) broadcast to ``like``, made on
+    ``like``'s device: a number is filled in there, never copied from the
+    host, so a CUDA-graph capture can record it."""
+    if isinstance(labels, torch.Tensor):
+        return labels.to(device=like.device, dtype=like.dtype).expand_as(like)
+    return torch.full_like(like, labels)
+
+
 def bce_with_logits(logits: torch.Tensor, labels) -> torch.Tensor:
     """Numerically stable binary cross-entropy on logits, mean over the
     batch (ref: Keras 'binary_crossentropy', bbhMahoGANy.py:1101,1107,1115)."""
     logits = logits.reshape(-1)
-    labels = torch.as_tensor(labels, dtype=logits.dtype, device=logits.device).expand_as(logits)
+    labels = _labels(labels, logits)
     return torch.mean(torch.clamp(logits, min=0.0) - logits * labels
                       + F.softplus(-torch.abs(logits)))
 
@@ -18,7 +27,7 @@ def binary_accuracy(logits: torch.Tensor, labels) -> torch.Tensor:
     """Fraction of (sigmoid(logit) > 0.5) predictions matching the rounded
     labels (the reference's Keras 'accuracy')."""
     logits = logits.reshape(-1)
-    labels = torch.as_tensor(labels, dtype=logits.dtype, device=logits.device).expand_as(logits)
+    labels = _labels(labels, logits)
     pred = (logits > 0.0).to(logits.dtype)
     return torch.mean((pred == torch.round(labels)).to(logits.dtype))
 
@@ -27,7 +36,7 @@ def chisquare_loss(probs: torch.Tensor, labels, n_sig: float = 1.0) -> torch.Ten
     """The reference's optional χ² GAN loss on sigmoid outputs
     (ref: chisquare_Loss, bbhMahoGANy.py:146-162)."""
     probs = probs.reshape(probs.shape[0], -1)
-    labels = torch.as_tensor(labels, dtype=probs.dtype, device=probs.device).expand_as(probs)
+    labels = _labels(labels, probs)
     return torch.mean(torch.sum((labels - probs) ** 2 / n_sig**2, dim=-1))
 
 

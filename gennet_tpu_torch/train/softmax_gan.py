@@ -23,8 +23,8 @@ import torch
 from torch import nn
 
 from gennet_tpu_torch.models.layers import replay, reset_module
+from gennet_tpu_torch.runtime.optim import adam
 from gennet_tpu_torch.train import losses as L
-from gennet_tpu_torch.train.cnn import adam
 from gennet_tpu_torch.train.mesh import DataMesh
 
 

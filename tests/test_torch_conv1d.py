@@ -345,7 +345,7 @@ def test_conv1d_train_follows_optimizer_steps_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the conv1d kernel has no CPU mode")
     torch.backends.cudnn.allow_tf32 = False
-    from gennet_tpu_torch.train.cnn import adam
+    from gennet_tpu_torch.runtime.optim import adam
 
     x, w, b = _card_inputs(4, 200, 64, 96, 5, seed=4)
     x.requires_grad_()

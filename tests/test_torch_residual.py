@@ -164,10 +164,13 @@ def test_discriminator_matches(case):
         np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=0,
                                    atol=cfg.lr * cfg.d_lr_scale, err_msg=k)
     moved = any(not torch.equal(v, r["d_before"][k]) for k, v in got.items())
-    # the anneal knobs freeze D and its Adam state: bit-identical, no moments
+    # the anneal knobs freeze D and its Adam state: bit-identical, the
+    # state optax holds right after init (zero moments, count 0)
     assert moved == (name != "burst_anneal")
     if name == "burst_anneal":
-        assert len(r["tnew"].d_opt.state) == 0
+        for s in r["tnew"].d_opt.state.values():
+            assert int(s["step"]) == 0
+            assert not s["exp_avg"].any() and not s["exp_avg_sq"].any()
 
 
 def test_generator_matches(case):

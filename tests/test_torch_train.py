@@ -186,10 +186,13 @@ def test_gan_update_discriminator_matches(gan_case):
     _sd_close(got, convert.flax_to_torch_discriminator(jax.device_get(jnew.d_params)),
               atol=cfg.lr * cfg.d_lr_scale)
     if gate == 0.25:
-        # a closed gate holds back D and its Adam state (no moments, no count)
+        # a closed gate holds back D and its Adam state: optax's state right
+        # after init, every moment zero and every count 0
         for k, v in got.items():
             assert torch.equal(v, d_before[k]), k
-        assert len(tnew.d_opt.state) == 0
+        for s in tnew.d_opt.state.values():
+            assert int(s["step"]) == 0
+            assert not s["exp_avg"].any() and not s["exp_avg_sq"].any()
     else:
         assert any(not torch.equal(v, d_before[k]) for k, v in got.items())
         assert all(int(s["step"]) == 1 for s in tnew.d_opt.state.values())

@@ -419,15 +419,25 @@ def test_pretrain_discriminator_matches_the_reference():
 @pytest.mark.parametrize("trainer", ["softmax", "denoiser"])
 def test_the_three_d_passes_of_a_step_share_one_mask(trainer, monkeypatch):
     from gennet_tpu_torch.models import discriminator as tdisc
+    from gennet_tpu_torch.models import layers as tlayers
 
-    seen = []
-    real_dropout = tdisc.dropout
+    calls, masks, states = [], [], []
+    real_dropout, real_keep = tdisc.dropout, tlayers.SharedMasks.keep
 
     def spy(x, rate, active, gen):
-        seen.append(gen.get_state().clone())
+        calls.append(gen)
         return real_dropout(x, rate, active, gen)
 
+    def spy_keep(self, shape, device, rate):
+        # the stream's state when the pass reached its mask, and the whole
+        # mask the pass was given
+        states.append(self.gen.get_state().clone())
+        keep = real_keep(self, shape, device, rate)
+        masks.append(keep)
+        return keep
+
     monkeypatch.setattr(tdisc, "dropout", spy)
+    monkeypatch.setattr(tlayers.SharedMasks, "keep", spy_keep)
     gen = torch.Generator().manual_seed(4)
     x = TT.sample_sinusoids(torch.Generator().manual_seed(5), 8, n_out=32)
     D = TM.SoftmaxDiscriminator(n_pix=32)
@@ -441,10 +451,13 @@ def test_the_three_d_passes_of_a_step_share_one_mask(trainer, monkeypatch):
         st = TDV.init_denoiser_gan(torch.Generator().manual_seed(0), TDV.DenoiserGenerator(32),
                                    D, cfg, "cpu")
         st, m = TDV.denoiser_gan_step(st, x, gen, cfg=cfg)
-    assert len(seen) == 3  # real, fake, and G's pass through the updated D
-    assert all(torch.equal(s, seen[0]) for s in seen)
+    assert len(calls) == 3  # real, fake, and G's pass through the updated D
+    assert len(masks) == 3  # every pass took its mask from the shared set
+    assert bool(masks[0].any()) and not bool(masks[0].all())  # a real mask
+    # passes 2 and 3 get pass 1's mask itself, in full
+    assert all(mk is masks[0] and torch.equal(mk, masks[0]) for mk in masks[1:])
     # the stream goes on past the masks: the next draw is not a replay
-    assert not torch.equal(gen.get_state(), seen[0])
+    assert not torch.equal(gen.get_state(), states[0])
     assert all(np.isfinite(float(v)) for v in m.values())
 
 
