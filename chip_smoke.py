@@ -129,7 +129,19 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    same draws twice from one seed), ``centered_tukey_window`` against its
    numpy form, the burst bank in bfloat16, ``overlap_tests`` on slice 5's
    cloud, the package-level imports (``from gennet_tpu_torch.train import
-   GANConfig, init_gan``), and 0 launches of either kernel.
+   GANConfig, init_gan``), and 0 launches of either kernel;
+17. slice 11, the recipe runners (``gennet_tpu_torch.recipes``) at full
+   width on short schedules, in a temporary directory:
+   ``bbh_sweep.run_one("r4flag", ...)`` (100 PE and 200 GAN steps, an
+   evaluation every 100, 1000 draws), ``burst_sweep.run_one("mlrc_sel",
+   ...)`` (500 + 500 steps, an evaluation every 250) and ``run_flagship``
+   to 100 steps, to 200 (resuming from step 100) and to 200 again (no step
+   trained, no row appended); every row with the JAX runner's keys and its
+   overlaps in [0, 1] or None where the JAX summary gives None; no conv
+   launch, no phasor launch under ``mlrc_sel``, and under ``r4flag`` and
+   each flagship run exactly the phasor launches that ``recipe_syntheses``
+   counts from the code (2,844, 978, 1,011 and, for the run that trains
+   nothing, the set-up's 57); each stage's wall.
 
 Every timed kernel call prints its bound: the larger of its operations
 over 165 TFLOP/s (the 3xTF32 ceiling: 495 TFLOP/s of TF32 over three
@@ -1671,6 +1683,188 @@ def slice10(P, CV, card, cloud) -> tuple:
     return launches, time.perf_counter() - t_start
 
 
+# the JAX runners' rows (scripts/bbh_sweep.py:256-269, run_flagship.py:52-65,
+# burst_sweep.py:225-237): slice 11 holds the port's rows to these keys
+BBH_ROW = ["variant", "seed", "iters", "beta", "beta_raw", "grid_overlap_raw", "beta_sanity",
+           "cnn_sanity_beta", "grid_overlap", "whiteness", "frozen_at", "selected_route",
+           "pool_ess", "plateau_k", "wall_s"]
+FLAGSHIP_ROW = ["variant", "seed", "iters", "beta", "beta_raw", "grid_overlap_raw",
+                "beta_sanity", "cnn_sanity_beta", "grid_overlap", "whiteness", "frozen_at",
+                "selected_at", "out_dir", "wall_s"]
+BURST_ROW = ["variant", "seed", "iters", "grid_overlap_final", "grid_overlap_best", "whiteness",
+             "rms", "frozen_at", "selected_at", "selected_route", "pool_ess", "plateau_k",
+             "wall_s"]
+
+
+def _check_overlaps(where: str, row: dict, keys, nulls=(), nan_ok=(), sentinel=None):
+    """Each overlap of ``row`` named in ``keys``: None where the JAX summary
+    gives None (``nulls``), else a float in [0, 1]; NaN allowed for
+    ``nan_ok`` (``beta_overlap``'s 0/0 when a cloud's KDE underflows, kept
+    for parity: ROADMAP queue 3), and ``sentinel`` for the burst's best
+    score when no state was scored."""
+    for k in keys:
+        v = row[k]
+        if k in nulls:
+            ok = v is None
+        else:
+            ok = isinstance(v, float) and (0.0 <= v <= 1.0 or (k in nan_ok and math.isnan(v))
+                                           or v == sentinel)
+        if not ok:
+            fail(f"slice 11: {where} {k} = {v!r}, expected "
+                 + ("None, as in the JAX summary" if k in nulls else "a float in [0, 1]"))
+
+
+def recipe_syntheses(n_synth: int, n_evals: int, n_lib: int) -> int:
+    """Syntheses (3 phasor launches each) of one ``run_bbh`` under the
+    ``r4flag`` routes (``pe_mlrc`` 1, ``reweight_temper`` 1,
+    ``select_best="elbo"``, no ``select_route``) with no collapsed cloud:
+
+    - set-up, ``n_synth``: bank batches, the event and its twin, grid
+      chunks, the sanity set;
+    - ``ml_recenter``, 302: the cloud, 300 Adam steps, the refined starts;
+    - each of the ``n_evals`` in-run evaluations, 305: the draw's
+      ``ml_recenter``, its ESS and its resample, then the cloud's ELBO;
+    - the final draw, 304: ``ml_recenter``, ESS, resample;
+    - ``select_final_cloud`` over ``n_lib`` library clouds (the saved
+      clouds of step ≤ ``gan_iters``): when ``n_lib`` > 0, one ELBO each,
+      then ``plat_is``, ``pool_is``, ``kde_is`` (16,384 draws, one call) and
+      the pool's ESS, and the ELBOs of the candidates ``argmax``,
+      ``plateau``, ``plat_is``, ``pool``, ``pool_is`` and ``kde_is``; the
+      ELBO of the ``final`` candidate always;
+    - the final evaluation of the chosen cloud: its 256 waveforms and its
+      ELBO.
+    """
+    library = n_lib + 4 + 6 if n_lib else 0
+    return n_synth + n_evals * (302 + 3) + (302 + 2) + library + 1 + 2
+
+
+def slice11(P, CV, card, n_synth) -> tuple:
+    """The recipe runners (slice 11) at full width (n_pix 1024, the 50,000
+    bank, the recipes' batch sizes) on short schedules, in a temporary
+    directory (the runners write under ``out/torch/`` of the working
+    directory):
+
+    - ``bbh_sweep.run_one("r4flag", 0, 200)``: 100 PE and 200 GAN steps
+      (cadence 100, the recipe's evaluation every 100 instead of 5000),
+      1000 draws an evaluation;
+    - ``burst_sweep.run_one("mlrc_sel", 0, 500)``: 500 PE and 500 GAN
+      steps (cadence 250, an evaluation at each), 1000 draws;
+    - ``run_flagship`` (``--plots false``: the card's machine has no
+      matplotlib) to 100 steps, then to 200, which resumes from the
+      step-100 checkpoint, then to 200 again, which trains nothing and
+      appends no row.
+
+    Each row has exactly the JAX runner's keys, with each overlap a float
+    in [0, 1], or None where the JAX summary gives None. Launches, exactly
+    as the code implies: no conv launch (the recipes keep
+    ``conv_impl="xla"``); under ``r4flag`` and each flagship run, 3 phasor
+    launches for each synthesis that :func:`recipe_syntheses` counts; under
+    ``mlrc_sel`` none (its bank is the analytic sine-Gaussian, its nets
+    cuDNN). Returns (launches by stage, walls by stage)."""
+    import dataclasses
+
+    import torch
+
+    from gennet_tpu_torch.recipes import bbh_sweep, burst_sweep, run_flagship
+
+    launches, walls = {}, {}
+    saved = (bbh_sweep.BASE, bbh_sweep.VARIANTS["r4flag"], burst_sweep.BASE)
+    cwd = os.getcwd()
+    build = os.path.join(REPO, "build")
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        os.chdir(tmp)
+        try:
+            bbh_sweep.BASE = dataclasses.replace(bbh_sweep.BASE, pe_iters=100, pe_cadence=100,
+                                                 n_posterior=1000)
+            bbh_sweep.VARIANTS["r4flag"] = dict(saved[1], eval_cadence=100)
+            burst_sweep.BASE = dataclasses.replace(burst_sweep.BASE, pe_iters=500, cadence=250,
+                                                   eval_every=1, n_posterior=1000)
+
+            def stage(name, fn):
+                P.LAUNCHES = CV.LAUNCHES = 0
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                walls[name] = time.perf_counter() - t0
+                launches[name] = (P.LAUNCHES, CV.LAUNCHES)
+                return out
+
+            row = stage("r4flag", lambda: bbh_sweep.run_one("r4flag", 0, 200, device="cuda"))
+            if list(row) != BBH_ROW or (row["variant"], row["seed"], row["iters"]) != (
+                    "r4flag", 0, 200):
+                fail(f"slice 11: bbh_sweep row {row}")
+            # select_best="elbo": the final cloud is library-selected, its
+            # raw scores null, as in the JAX summary (ROADMAP queue 3)
+            _check_overlaps("r4flag", row, BBH_ROW[3:9], nulls=("beta_raw", "grid_overlap_raw"),
+                            nan_ok=("beta_sanity",))
+            if row["selected_route"] is None:
+                fail("slice 11: r4flag selected no library candidate")
+            sweep_rows = read_rows(bbh_sweep.RESULTS)
+            if [json.dumps(r) for r in sweep_rows] != [json.dumps(row)]:
+                fail(f"slice 11: {bbh_sweep.RESULTS} holds {sweep_rows}")
+
+            row_b = stage("mlrc_sel",
+                          lambda: burst_sweep.run_one("mlrc_sel", 0, 500, device="cuda"))
+            if list(row_b) != BURST_ROW or (row_b["variant"], row_b["seed"], row_b["iters"]) != (
+                    "mlrc_sel", 0, 500):
+                fail(f"slice 11: burst_sweep row {row_b}")
+            _check_overlaps("mlrc_sel", row_b, ("grid_overlap_final",))
+            _check_overlaps("mlrc_sel", row_b, ("grid_overlap_best",), sentinel=-1.0)
+            if row_b["selected_at"] not in (250, 500) or row_b["selected_route"] is None:
+                fail(f"slice 11: mlrc_sel selected_at {row_b['selected_at']}, route "
+                     f"{row_b['selected_route']}")
+            if [json.dumps(r) for r in read_rows(burst_sweep.RESULTS)] != [json.dumps(row_b)]:
+                fail(f"slice 11: {burst_sweep.RESULTS} does not hold the one burst row")
+
+            flag = []
+            for n in (100, 200, 200):
+                flag.append(stage(f"flagship {n}" + (" again" if len(flag) == 2 else ""),
+                                  lambda n=n: run_flagship.main(
+                                      ["r4flag", str(n), "--device", "cuda", "--plots", "false"])))
+            first, second, third = flag
+            for r, n in ((first, 100), (second, 200)):
+                if r is None or list(r) != FLAGSHIP_ROW or r["iters"] != n:
+                    fail(f"slice 11: flagship row at {n}: {r}")
+                _check_overlaps(f"flagship {n}", r, FLAGSHIP_ROW[3:9],
+                                nulls=("beta_raw", "grid_overlap_raw"), nan_ok=("beta_sanity",))
+            gan_steps = [r["step"] for r in read_rows(
+                os.path.join(run_flagship.OUT_DIR, "bbh_metrics.jsonl")) if "d_loss" in r]
+            if third is not None or gan_steps != [100, 200]:
+                fail(f"slice 11: the flagship's resume: GAN rows at {gan_steps} (expected "
+                     f"[100, 200]), the re-run returned {third}")
+            if [json.dumps(r) for r in read_rows(bbh_sweep.RESULTS)[1:]] != [
+                    json.dumps(r) for r in (first, second)]:
+                fail("slice 11: the flagship's re-run after completion appended a row")
+        finally:
+            os.chdir(cwd)
+            bbh_sweep.BASE, bbh_sweep.VARIANTS["r4flag"], burst_sweep.BASE = saved
+
+    # launches against what the code implies: the r4flag run evaluates at
+    # 100 and 200 and its library holds those two clouds; the flagship has
+    # no in-run evaluation (eval_cadence 10k), so its run to 100 has an
+    # empty library and its run to 200 the first run's final cloud (saved
+    # at step 101 ≤ 200); the re-run trains nothing and draws nothing
+    expect = {"r4flag": 3 * recipe_syntheses(n_synth, n_evals=2, n_lib=2),
+              "mlrc_sel": 0,
+              "flagship 100": 3 * recipe_syntheses(n_synth, n_evals=0, n_lib=0),
+              "flagship 200": 3 * recipe_syntheses(n_synth, n_evals=0, n_lib=1),
+              "flagship 200 again": 3 * n_synth}
+    for name, (ph, cv) in launches.items():
+        if cv != 0:
+            fail(f"slice 11: {name} launched the conv kernel {cv} times under conv_impl xla")
+        if ph != expect[name]:
+            fail(f"slice 11: {name} launched the phasor kernel {ph} times, expected exactly "
+                 f"{expect[name]} (recipe_syntheses; 0 under mlrc_sel, whose bank is the "
+                 "analytic sine-Gaussian)")
+    print("slice 11: rows " + json.dumps({"r4flag": row, "mlrc_sel": row_b,
+                                          "flagship": [first, second]}))
+    print("slice 11: launches (phasor, conv) " + json.dumps(launches) + " (expected: conv 0, "
+          f"phasor exactly {json.dumps(expect)})")
+    print("slice 11: walls s " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+          + f" [{card}]")
+    return launches, walls
+
+
 def bf16_against_f32(pe, bank, measured, g, dev, card) -> dict:
     """GAN steps/s (default recipe, batch 8) and the wall time of a
     4000-draw posterior (G's draws in chunks of 256 through the PE), bf16
@@ -2262,6 +2456,10 @@ def main():
     launches_10, wall_10 = slice10(P, CV, card, cloud_5)
     print(f"slice 10 finished in {wall_10:.1f} s; launches (phasor, conv) {launches_10} [{card}]")
 
+    # ---- 17. slice 11: the recipe runners ---------------------------------------
+    launches_11, walls_11 = slice11(P, CV, card, n_synth)
+    print(f"slice 11 finished in {sum(walls_11.values()):.1f} s [{card}]")
+
     def worst(table):
         """The timed shape with the largest kernel / plain ratio."""
         shape, (k, p) = max(table.items(), key=lambda kv: kv[1][0] / kv[1][1])
@@ -2293,7 +2491,8 @@ def main():
                              **{f"slice 7 {k}": v[0] for k, v in launches_7.items()},
                              "slice 8": launches_8[0],
                              **{f"slice 9 {k}": v[0] for k, v in launches_9.items()},
-                             "slice 10": launches_10[0]},
+                             "slice 10": launches_10[0],
+                             **{f"slice 11 {k}": v[0] for k, v in launches_11.items()}},
     }, {
         "name": "conv1d_same_f32", "route": "cuda",
         "source": "gennet_tpu_torch/csrc/conv1d_same.cu",
@@ -2309,7 +2508,8 @@ def main():
                              **{f"slice 7 {k}": v[1] for k, v in launches_7.items()},
                              "slice 8": launches_8[1],
                              **{f"slice 9 {k}": v[1] for k, v in launches_9.items()},
-                             "slice 10": launches_10[1]},
+                             "slice 10": launches_10[1],
+                             **{f"slice 11 {k}": v[1] for k, v in launches_11.items()}},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,9 @@ Posterior snapshots are byte-compatible with the JAX package's
 (``posterior_samples_<step:05d>.npz`` with one ``samples`` array), so the
 ``scripts/`` readers work on the port's output.
 
-The JAX package's orbax checkpoints are not read: orbax imports JAX
-(ROADMAP queue 1 #7). A directory that holds them is refused rather than
-read as empty.
+The JAX package's orbax checkpoints are not read: orbax imports JAX (the
+orbax loader is in ROADMAP queue 1's "Not ported, with reasons" list). A
+directory that holds them is refused rather than read as empty.
 
 Under a data-parallel mesh every rank calls :meth:`CheckpointManager.save`:
 the ranks' ``extra`` dicts (their generator states) are gathered by rank,
@@ -114,8 +114,9 @@ class CheckpointManager:
         if not steps and any(p.isdigit() and os.path.isdir(os.path.join(self._dir, p))
                              for p in names):
             raise ValueError(f"{self._dir} holds orbax checkpoints of the JAX package; the port "
-                             "reads only its own ckpt_<step>.pt (the orbax loader is not ported: "
-                             "ROADMAP queue 1 #7)")
+                             "reads only its own ckpt_<step>.pt (the orbax loader is not ported, "
+                             "as orbax imports JAX: ROADMAP queue 1, \"Not ported, with "
+                             "reasons\")")
         return steps
 
     def latest_step(self):

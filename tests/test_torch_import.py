@@ -1,6 +1,7 @@
 """The PyTorch port imports no JAX: importing every module of
-``gennet_tpu_torch`` in a fresh interpreter leaves jax, flax, optax, orbax
-and the JAX package out of ``sys.modules``."""
+``gennet_tpu_torch`` in a fresh interpreter leaves jax, flax, optax, orbax,
+the JAX package and its ``scripts`` (the recipes are ported to
+``gennet_tpu_torch.recipes``) out of ``sys.modules``."""
 
 import os
 import subprocess
@@ -15,7 +16,8 @@ names = [m.name for m in pkgutil.walk_packages(gennet_tpu_torch.__path__, "genne
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "gennet_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "gennet_tpu",
+                                      "scripts"))
 print(len(names))
 print(",".join(bad))
 """
@@ -34,16 +36,19 @@ def test_port_imports_no_jax():
 
 
 def test_no_import_line_names_jax_or_the_jax_package():
-    # every module of the port (the burst workload's included) and the two
-    # card scripts: no import or from line names jax, flax, optax, orbax or
-    # gennet_tpu (gennet_tpu_torch is the port itself)
+    # every module of the port (the burst workload's and the recipes'
+    # included) and the two card scripts: no import or from line names jax,
+    # flax, optax, orbax, gennet_tpu (gennet_tpu_torch is the port itself)
+    # or the JAX package's scripts
     import glob
     import re
 
     files = sorted(glob.glob(os.path.join(REPO, "gennet_tpu_torch", "**", "*.py"), recursive=True))
     files += [os.path.join(REPO, name) for name in ("chip_smoke.py", "kernel_times.py")]
     assert os.path.join(REPO, "gennet_tpu_torch", "physics", "burst.py") in files
-    bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|gennet_tpu)\b(?!_torch)")
+    assert os.path.join(REPO, "gennet_tpu_torch", "recipes", "bbh_sweep.py") in files
+    bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|gennet_tpu|scripts)"
+                     r"\b(?!_torch)")
     hits = [f"{os.path.relpath(f, REPO)}:{i}: {line.strip()}"
             for f in files for i, line in enumerate(open(f), 1) if bad.match(line)]
     assert hits == []
