@@ -141,7 +141,20 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    launch, no phasor launch under ``mlrc_sel``, and under ``r4flag`` and
    each flagship run exactly the phasor launches that ``recipe_syntheses``
    counts from the code (2,844, 978, 1,011 and, for the run that trains
-   nothing, the set-up's 57); each stage's wall.
+   nothing, the set-up's 57); each stage's wall;
+18. slice 12, the post-run studies (``gennet_tpu_torch.studies``) at full
+   width on slice 11's runs: ``bbh_postproc_eval``, ``elbo_stack_eval`` and
+   ``twin_cue_probe`` on its ``r4flag`` run, ``bbh_sampler_calibration``
+   refused there (its script restores the default G and the pair D);
+   a short ``r4_r3probe`` run under ``--conv-impl pallas`` (100 PE and 100
+   GAN steps, two evaluations), then ``d_memorization_probe`` and
+   ``bbh_sampler_calibration`` on it (1000 draws a cell, not the study's
+   4000: a cut of the study's depth; G still runs in chunks of 256 rows,
+   so the kernels' shapes are those of 4000); ``burst_pool_study`` and
+   ``burst_rescore_study`` on the ``mlrc_sel`` run; ``burst_debias_diag``;
+   every row with the JAX script's keys and finite values (None where the
+   script gives None), and each stage's phasor and conv launches exactly
+   as the code implies; each stage's wall.
 
 Every timed kernel call prints its bound: the larger of its operations
 over 165 TFLOP/s (the 3xTF32 ceiling: 495 TFLOP/s of TF32 over three
@@ -152,6 +165,7 @@ the kernels' JSON summary; the last line is ``{"ok": true, "device":
 file, it exits non-zero and prints no result.
 """
 
+import functools
 import json
 import math
 import os
@@ -1714,6 +1728,20 @@ def _check_overlaps(where: str, row: dict, keys, nulls=(), nan_ok=(), sentinel=N
                  + ("None, as in the JAX summary" if k in nulls else "a float in [0, 1]"))
 
 
+def run_stage(P, CV, launches: dict, walls: dict, name: str, fn):
+    """``fn()`` with both kernels' launch counts set to 0 just before it:
+    its launches (phasor, conv) and wall go under ``name``."""
+    import torch
+
+    P.LAUNCHES = CV.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    walls[name] = time.perf_counter() - t0
+    launches[name] = (P.LAUNCHES, CV.LAUNCHES)
+    return out
+
+
 def recipe_syntheses(n_synth: int, n_evals: int, n_lib: int) -> int:
     """Syntheses (3 phasor launches each) of one ``run_bbh`` under the
     ``r4flag`` routes (``pe_mlrc`` 1, ``reweight_temper`` 1,
@@ -1738,11 +1766,11 @@ def recipe_syntheses(n_synth: int, n_evals: int, n_lib: int) -> int:
     return n_synth + n_evals * (302 + 3) + (302 + 2) + library + 1 + 2
 
 
-def slice11(P, CV, card, n_synth) -> tuple:
+def slice11(P, CV, card, n_synth, work) -> tuple:
     """The recipe runners (slice 11) at full width (n_pix 1024, the 50,000
-    bank, the recipes' batch sizes) on short schedules, in a temporary
-    directory (the runners write under ``out/torch/`` of the working
-    directory):
+    bank, the recipes' batch sizes) on short schedules, in the directory
+    ``work``, which slice 12 reads after it (the runners write under
+    ``out/torch/`` of the working directory):
 
     - ``bbh_sweep.run_one("r4flag", 0, 200)``: 100 PE and 200 GAN steps
       (cadence 100, the recipe's evaluation every 100 instead of 5000),
@@ -1763,81 +1791,69 @@ def slice11(P, CV, card, n_synth) -> tuple:
     cuDNN). Returns (launches by stage, walls by stage)."""
     import dataclasses
 
-    import torch
-
     from gennet_tpu_torch.recipes import bbh_sweep, burst_sweep, run_flagship
 
     launches, walls = {}, {}
+    stage = functools.partial(run_stage, P, CV, launches, walls)
     saved = (bbh_sweep.BASE, bbh_sweep.VARIANTS["r4flag"], burst_sweep.BASE)
     cwd = os.getcwd()
-    build = os.path.join(REPO, "build")
-    with tempfile.TemporaryDirectory(dir=build) as tmp:
-        os.chdir(tmp)
-        try:
-            bbh_sweep.BASE = dataclasses.replace(bbh_sweep.BASE, pe_iters=100, pe_cadence=100,
-                                                 n_posterior=1000)
-            bbh_sweep.VARIANTS["r4flag"] = dict(saved[1], eval_cadence=100)
-            burst_sweep.BASE = dataclasses.replace(burst_sweep.BASE, pe_iters=500, cadence=250,
-                                                   eval_every=1, n_posterior=1000)
+    os.chdir(work)
+    try:
+        bbh_sweep.BASE = dataclasses.replace(bbh_sweep.BASE, pe_iters=100, pe_cadence=100,
+                                             n_posterior=1000)
+        bbh_sweep.VARIANTS["r4flag"] = dict(saved[1], eval_cadence=100)
+        burst_sweep.BASE = dataclasses.replace(burst_sweep.BASE, pe_iters=500, cadence=250,
+                                               eval_every=1, n_posterior=1000)
 
-            def stage(name, fn):
-                P.LAUNCHES = CV.LAUNCHES = 0
-                t0 = time.perf_counter()
-                out = fn()
-                torch.cuda.synchronize()
-                walls[name] = time.perf_counter() - t0
-                launches[name] = (P.LAUNCHES, CV.LAUNCHES)
-                return out
+        row = stage("r4flag", lambda: bbh_sweep.run_one("r4flag", 0, 200, device="cuda"))
+        if list(row) != BBH_ROW or (row["variant"], row["seed"], row["iters"]) != (
+                "r4flag", 0, 200):
+            fail(f"slice 11: bbh_sweep row {row}")
+        # select_best="elbo": the final cloud is library-selected, its
+        # raw scores null, as in the JAX summary (ROADMAP queue 3)
+        _check_overlaps("r4flag", row, BBH_ROW[3:9], nulls=("beta_raw", "grid_overlap_raw"),
+                        nan_ok=("beta_sanity",))
+        if row["selected_route"] is None:
+            fail("slice 11: r4flag selected no library candidate")
+        sweep_rows = read_rows(bbh_sweep.RESULTS)
+        if [json.dumps(r) for r in sweep_rows] != [json.dumps(row)]:
+            fail(f"slice 11: {bbh_sweep.RESULTS} holds {sweep_rows}")
 
-            row = stage("r4flag", lambda: bbh_sweep.run_one("r4flag", 0, 200, device="cuda"))
-            if list(row) != BBH_ROW or (row["variant"], row["seed"], row["iters"]) != (
-                    "r4flag", 0, 200):
-                fail(f"slice 11: bbh_sweep row {row}")
-            # select_best="elbo": the final cloud is library-selected, its
-            # raw scores null, as in the JAX summary (ROADMAP queue 3)
-            _check_overlaps("r4flag", row, BBH_ROW[3:9], nulls=("beta_raw", "grid_overlap_raw"),
-                            nan_ok=("beta_sanity",))
-            if row["selected_route"] is None:
-                fail("slice 11: r4flag selected no library candidate")
-            sweep_rows = read_rows(bbh_sweep.RESULTS)
-            if [json.dumps(r) for r in sweep_rows] != [json.dumps(row)]:
-                fail(f"slice 11: {bbh_sweep.RESULTS} holds {sweep_rows}")
+        row_b = stage("mlrc_sel",
+                      lambda: burst_sweep.run_one("mlrc_sel", 0, 500, device="cuda"))
+        if list(row_b) != BURST_ROW or (row_b["variant"], row_b["seed"], row_b["iters"]) != (
+                "mlrc_sel", 0, 500):
+            fail(f"slice 11: burst_sweep row {row_b}")
+        _check_overlaps("mlrc_sel", row_b, ("grid_overlap_final",))
+        _check_overlaps("mlrc_sel", row_b, ("grid_overlap_best",), sentinel=-1.0)
+        if row_b["selected_at"] not in (250, 500) or row_b["selected_route"] is None:
+            fail(f"slice 11: mlrc_sel selected_at {row_b['selected_at']}, route "
+                 f"{row_b['selected_route']}")
+        if [json.dumps(r) for r in read_rows(burst_sweep.RESULTS)] != [json.dumps(row_b)]:
+            fail(f"slice 11: {burst_sweep.RESULTS} does not hold the one burst row")
 
-            row_b = stage("mlrc_sel",
-                          lambda: burst_sweep.run_one("mlrc_sel", 0, 500, device="cuda"))
-            if list(row_b) != BURST_ROW or (row_b["variant"], row_b["seed"], row_b["iters"]) != (
-                    "mlrc_sel", 0, 500):
-                fail(f"slice 11: burst_sweep row {row_b}")
-            _check_overlaps("mlrc_sel", row_b, ("grid_overlap_final",))
-            _check_overlaps("mlrc_sel", row_b, ("grid_overlap_best",), sentinel=-1.0)
-            if row_b["selected_at"] not in (250, 500) or row_b["selected_route"] is None:
-                fail(f"slice 11: mlrc_sel selected_at {row_b['selected_at']}, route "
-                     f"{row_b['selected_route']}")
-            if [json.dumps(r) for r in read_rows(burst_sweep.RESULTS)] != [json.dumps(row_b)]:
-                fail(f"slice 11: {burst_sweep.RESULTS} does not hold the one burst row")
-
-            flag = []
-            for n in (100, 200, 200):
-                flag.append(stage(f"flagship {n}" + (" again" if len(flag) == 2 else ""),
-                                  lambda n=n: run_flagship.main(
-                                      ["r4flag", str(n), "--device", "cuda", "--plots", "false"])))
-            first, second, third = flag
-            for r, n in ((first, 100), (second, 200)):
-                if r is None or list(r) != FLAGSHIP_ROW or r["iters"] != n:
-                    fail(f"slice 11: flagship row at {n}: {r}")
-                _check_overlaps(f"flagship {n}", r, FLAGSHIP_ROW[3:9],
-                                nulls=("beta_raw", "grid_overlap_raw"), nan_ok=("beta_sanity",))
-            gan_steps = [r["step"] for r in read_rows(
-                os.path.join(run_flagship.OUT_DIR, "bbh_metrics.jsonl")) if "d_loss" in r]
-            if third is not None or gan_steps != [100, 200]:
-                fail(f"slice 11: the flagship's resume: GAN rows at {gan_steps} (expected "
-                     f"[100, 200]), the re-run returned {third}")
-            if [json.dumps(r) for r in read_rows(bbh_sweep.RESULTS)[1:]] != [
-                    json.dumps(r) for r in (first, second)]:
-                fail("slice 11: the flagship's re-run after completion appended a row")
-        finally:
-            os.chdir(cwd)
-            bbh_sweep.BASE, bbh_sweep.VARIANTS["r4flag"], burst_sweep.BASE = saved
+        flag = []
+        for n in (100, 200, 200):
+            flag.append(stage(f"flagship {n}" + (" again" if len(flag) == 2 else ""),
+                              lambda n=n: run_flagship.main(
+                                  ["r4flag", str(n), "--device", "cuda", "--plots", "false"])))
+        first, second, third = flag
+        for r, n in ((first, 100), (second, 200)):
+            if r is None or list(r) != FLAGSHIP_ROW or r["iters"] != n:
+                fail(f"slice 11: flagship row at {n}: {r}")
+            _check_overlaps(f"flagship {n}", r, FLAGSHIP_ROW[3:9],
+                            nulls=("beta_raw", "grid_overlap_raw"), nan_ok=("beta_sanity",))
+        gan_steps = [r["step"] for r in read_rows(
+            os.path.join(run_flagship.OUT_DIR, "bbh_metrics.jsonl")) if "d_loss" in r]
+        if third is not None or gan_steps != [100, 200]:
+            fail(f"slice 11: the flagship's resume: GAN rows at {gan_steps} (expected "
+                 f"[100, 200]), the re-run returned {third}")
+        if [json.dumps(r) for r in read_rows(bbh_sweep.RESULTS)[1:]] != [
+                json.dumps(r) for r in (first, second)]:
+            fail("slice 11: the flagship's re-run after completion appended a row")
+    finally:
+        os.chdir(cwd)
+        bbh_sweep.BASE, bbh_sweep.VARIANTS["r4flag"], burst_sweep.BASE = saved
 
     # launches against what the code implies: the r4flag run evaluates at
     # 100 and 200 and its library holds those two clouds; the flagship has
@@ -1861,6 +1877,194 @@ def slice11(P, CV, card, n_synth) -> tuple:
     print("slice 11: launches (phasor, conv) " + json.dumps(launches) + " (expected: conv 0, "
           f"phasor exactly {json.dumps(expect)})")
     print("slice 11: walls s " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+          + f" [{card}]")
+    return launches, walls
+
+
+# the JAX scripts' rows (scripts/bbh_postproc_eval.py:161-200,
+# elbo_stack_eval.py:122-125, twin_cue_probe.py:79-86,
+# d_memorization_probe.py:115, bbh_sampler_calibration.py:94-101,
+# burst_pool_study.py:83-89, burst_rescore_study.py:94-119): slice 12
+# holds the port's rows to these keys
+POSTPROC_ROUTE_ROW = ["run", "route", "beta", "grid_overlap", "elbo", "cloud"]
+POSTPROC_LIBRARY_ROW = ["run", "route", "beta", "grid_overlap", "elbo", "chosen", "plateau_k",
+                        "pool_ess", "kde_ess"]
+STACK_ROW = ["run", "k", "steps", "beta", "grid_overlap", "elbo_pooled"]
+TWIN_ROW = ["run", "step", "twin_boost", "logit_bank", "logit_signal", "logit_g", "twin_penalty"]
+FAMILIES = ["A", "B", "C", "C2", "C3", "D", "E"]
+SAMPLER_ROW = ["bn_mode", "dropout", "posterior_noise", "beta", "grid_overlap", "bias_mc",
+               "disp_mc", "disp_q"]
+POOL_ROW = ["run", "argmax_step", "plateau_k", "pool_ess", "kde_ess", "scores", "candidates",
+            "chosen", "chosen_overlap"]
+RESCORE_SCORES = ["elbo_g", "elbo_k", "mlogl", "white", "w_elbo"]
+
+
+def _finite(where: str, values: dict, keys, nulls=(), nan_ok=()):
+    """Each value of ``keys`` a finite float, or None for ``nulls`` (the
+    script's None for a non-finite ELBO), or NaN for ``nan_ok``
+    (``beta_overlap``'s 0/0 when a cloud's KDE underflows, kept for parity:
+    ROADMAP queue 3)."""
+    for k in keys:
+        v = values[k]
+        ok = ((v is None and k in nulls) or (isinstance(v, float) and (
+            math.isfinite(v) or (k in nan_ok and math.isnan(v)))))
+        if not ok:
+            fail(f"slice 12: {where} {k} = {v!r}, expected a finite float"
+                 + (" or None" if k in nulls else ""))
+
+
+def slice12(P, CV, card, n_synth, work) -> tuple:
+    """The post-run studies (``gennet_tpu_torch.studies``, slice 12) at
+    full width, in ``work`` (the studies write under ``out/torch/`` of the
+    working directory):
+
+    - on slice 11's ``r4flag`` run (the ch1-only D, a CNN cache, clouds at
+      steps 100, 200 and the final 201): ``bbh_postproc_eval`` (the raw
+      cloud and 8 routes, then the library over the two in-run clouds),
+      ``elbo_stack_eval``, ``twin_cue_probe``, and ``bbh_sampler_calibration``
+      refused before any work (its script restores the default batch-norm
+      G and the pair D, which this run does not have);
+    - a new short run of the ``r4_r3probe`` recipe (the pair D) under
+      ``conv_impl="pallas"`` without a CNN cache, so its PE is in
+      ``ckpt_pe``: 100 PE and 100 GAN steps, cadence 50, an evaluation at
+      50 and 100, 1000 draws; on it ``d_memorization_probe`` (its newest
+      checkpoint: the best-whiteness state at step 101) and
+      ``bbh_sampler_calibration`` (16 cells of 1000 draws, where the study
+      takes 4000: a cut of its depth only, as G's chunks stay 256 rows);
+    - on slice 11's ``mlrc_sel`` run: ``burst_pool_study`` and
+      ``burst_rescore_study``; and ``burst_debias_diag`` at its own size.
+
+    Each row has exactly the JAX script's keys, with every overlap, logit
+    and ELBO finite, or None where the script gives None. Launches, exactly
+    as the code implies (``recipe_syntheses`` for the run; 3 phasor
+    launches a synthesis; 35 conv launches a GAN step, 5 a G chunk of 256,
+    2 a D pass). Returns (launches by stage, walls by stage)."""
+    import dataclasses
+
+    from gennet_tpu_torch.cli.workloads import run_bbh
+    from gennet_tpu_torch.recipes import bbh_sweep, burst_sweep
+    from gennet_tpu_torch.studies import (bbh_postproc_eval, bbh_sampler_calibration,
+                                          burst_debias_diag, burst_pool_study,
+                                          burst_rescore_study, d_memorization_probe,
+                                          elbo_stack_eval, twin_cue_probe)
+
+    launches, walls = {}, {}
+    stage = functools.partial(run_stage, P, CV, launches, walls)
+    r4flag = os.path.join(bbh_sweep.ROOT, "r4flag_s0")
+    probe = os.path.join(bbh_sweep.ROOT, "r4_r3probe_pallas_s0")
+    mlrc = os.path.join(burst_sweep.ROOT, "mlrc_sel_s0")
+    cuda = ["--device", "cuda"]
+
+    def refused(run_dir):
+        try:
+            bbh_sampler_calibration.main([run_dir, *cuda])
+        except ValueError as e:
+            return str(e)
+        fail(f"slice 12: bbh_sampler_calibration ran on {run_dir}, which its script cannot "
+             "restore")
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        lib_steps = [int(p.rsplit("_", 1)[1].split(".")[0]) for p in os.listdir(
+            os.path.join(r4flag, "GAN_posterior_samples"))]
+        n_lib = sum(st <= 200 for st in lib_steps)
+        post = stage("postproc r4flag", lambda: bbh_postproc_eval.main([r4flag, *cuda]))
+        stack, _ = stage("stack r4flag", lambda: elbo_stack_eval.main([r4flag, *cuda]))
+        twin = stage("twin r4flag", lambda: twin_cue_probe.main([r4flag, *cuda]))
+        why = stage("sampler r4flag refused", lambda: refused(r4flag))
+        cfg = dataclasses.replace(
+            bbh_sweep.BASE, **bbh_sweep.VARIANTS["r4_r3probe"], conv_impl="pallas",
+            cnn_cache=None, pe_iters=100, pe_cadence=100, gan_iters=100, cadence=50,
+            eval_cadence=50, n_posterior=1000, out_dir=probe)
+        run = stage("r4_r3probe pallas", lambda: run_bbh(cfg, device="cuda"))
+        mem = stage("memorization r4_r3probe",
+                    lambda: d_memorization_probe.main([probe, *cuda]))
+        cells = stage("sampler r4_r3probe",
+                      lambda: bbh_sampler_calibration.main([probe, "1000", *cuda]))
+        pool = stage("pool mlrc_sel", lambda: burst_pool_study.main([mlrc, *cuda]))[0]
+        rescore = stage("rescore mlrc_sel", lambda: burst_rescore_study.main([mlrc, *cuda]))[0]
+        diag = stage("debias diag", lambda: burst_debias_diag.main(cuda))
+        probe_rows = read_rows(os.path.join(probe, "bbh_metrics.jsonl"))
+        probe_lib = sum(int(p.rsplit("_", 1)[1].split(".")[0]) <= cfg.gan_iters
+                        for p in os.listdir(os.path.join(probe, "GAN_posterior_samples")))
+    finally:
+        os.chdir(cwd)
+
+    # ---- the rows: the scripts' keys, finite values ----------------------------
+    routes = ["raw", "debias1", "debias2", "bootcal", "debias1_bootcal", "mlrc",
+              "mlrc_reweight1", "reweight1", "reweight05"]
+    if [r["route"] for r in post[:9]] != routes or len(post) != 9 + 6:
+        fail(f"slice 12: postproc routes {[r['route'] for r in post]}")
+    for r in post:
+        lib = r["route"].startswith("library:")
+        keys = (POSTPROC_LIBRARY_ROW + [k for k in ("elbo_se", "tiebreak") if k in r] if lib
+                else POSTPROC_ROUTE_ROW + (["ess"] if r["route"].startswith("reweight") else []))
+        if list(r) != keys:
+            fail(f"slice 12: postproc row keys {list(r)}, expected {keys}")
+        _finite(f"postproc {r['route']}", r, ["beta", "grid_overlap", "elbo"]
+                + (["pool_ess", "kde_ess"] if lib else []), nulls=("elbo",), nan_ok=("beta",))
+    if sum(r.get("chosen", False) for r in post) != 1:
+        fail("slice 12: postproc chose no library candidate, or more than one")
+    if not stack or any(list(r) != STACK_ROW for r in stack):
+        fail(f"slice 12: elbo_stack rows {stack}")
+    for r in stack:
+        _finite(f"stack k={r['k']}", r, ["beta", "grid_overlap", "elbo_pooled"],
+                nulls=("elbo_pooled",), nan_ok=("beta",))
+    if list(twin) != TWIN_ROW or twin["step"] != 200:
+        fail(f"slice 12: twin_cue row {twin} (the last training state is step 200)")
+    _finite("twin_cue", twin, TWIN_ROW[3:])
+    if "g_norm='group'" not in why or "pair_d=False" not in why:
+        fail(f"slice 12: the sampler calibration's refusal of r4flag: {why}")
+    if list(mem) != FAMILIES:
+        fail(f"slice 12: memorization families {list(mem)}")
+    _finite("memorization", mem, FAMILIES)
+    if [list(r) for r in cells] != [SAMPLER_ROW] * 16:
+        fail(f"slice 12: sampler rows {cells}")
+    for r in cells:
+        _finite("sampler", r, SAMPLER_ROW[3:], nan_ok=("beta",))
+    if pool is None or list(pool) != POOL_ROW:
+        fail(f"slice 12: pool study row {pool}")
+    _finite("pool study", pool, ["pool_ess", "kde_ess", "chosen_overlap"])
+    keys = ["run", "n", *[k for k in RESCORE_SCORES if k in rescore], "best_overlap",
+            "final_overlap"]
+    if list(rescore) != keys or "elbo_g" not in rescore:
+        fail(f"slice 12: rescore row {rescore}")
+    _finite("rescore", rescore, ["best_overlap", "final_overlap"])
+    _finite("debias diag", diag, ["ml_recenter", "raw"])
+
+    # ---- launches against what the code implies --------------------------------
+    # syntheses: the event 1, the bank's 13 batches and its twin 14, the
+    # grid's 3 chunks of 4096; the route sweep 321 (self_calibrate 1 and 2,
+    # bootstrap 1 and 1, ml_recenter 302, three resamples, two ESS, nine
+    # ELBOs); the library n_lib + 10 (recipe_syntheses); one ELBO a stack.
+    # conv (r4_r3probe under pallas): 35 a GAN step, 5 a G chunk of 256
+    # (4 chunks a 1000-draw), 2 a D pass
+    steps = run["final_step"]
+    n_evals = sum("whiteness" in r for r in probe_rows)
+    expect = {
+        "postproc r4flag": (3 * (1 + 3 + 321 + n_lib + 10), 0),
+        "stack r4flag": (3 * (1 + 3 + len(stack)), 0),
+        "twin r4flag": (3 * 15, 0),
+        "sampler r4flag refused": (0, 0),
+        "r4_r3probe pallas": (3 * recipe_syntheses(n_synth, n_evals=n_evals, n_lib=probe_lib),
+                              35 * steps + 5 * 4 * (n_evals + 1)),
+        "memorization r4_r3probe": (3 * 15, 5 + 7 * 2),
+        "sampler r4_r3probe": (3 * (15 + 3), 16 * 4 * 5),
+        "pool mlrc_sel": (0, 0), "rescore mlrc_sel": (0, 0), "debias diag": (0, 0),
+    }
+    if launches != expect:
+        fail("slice 12: launches (phasor, conv) " + json.dumps(launches) + ", expected "
+             + json.dumps(expect))
+    print("slice 12: rows " + json.dumps({
+        "postproc": post, "stack": stack, "twin": twin, "sampler_refusal": why,
+        "r4_r3probe": {k: run[k] for k in ("final_step", "frozen_at", "beta", "grid_overlap",
+                                           "selected_route")},
+        "memorization": mem, "verdict": d_memorization_probe.verdict(mem), "sampler": cells,
+        "pool": pool, "rescore": rescore,
+        "debias": {k: diag[k] for k in ("ml_recenter", "raw")}}, default=float))
+    print("slice 12: launches (phasor, conv) " + json.dumps(launches) + " (as expected)")
+    print("slice 12: walls s " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
           + f" [{card}]")
     return launches, walls
 
@@ -2456,9 +2660,12 @@ def main():
     launches_10, wall_10 = slice10(P, CV, card, cloud_5)
     print(f"slice 10 finished in {wall_10:.1f} s; launches (phasor, conv) {launches_10} [{card}]")
 
-    # ---- 17. slice 11: the recipe runners ---------------------------------------
-    launches_11, walls_11 = slice11(P, CV, card, n_synth)
-    print(f"slice 11 finished in {sum(walls_11.values()):.1f} s [{card}]")
+    # ---- 17-18. slices 11 and 12: the recipe runners, then the studies on their runs
+    with tempfile.TemporaryDirectory(dir=build) as work:
+        launches_11, walls_11 = slice11(P, CV, card, n_synth, work)
+        print(f"slice 11 finished in {sum(walls_11.values()):.1f} s [{card}]")
+        launches_12, walls_12 = slice12(P, CV, card, n_synth, work)
+        print(f"slice 12 finished in {sum(walls_12.values()):.1f} s [{card}]")
 
     def worst(table):
         """The timed shape with the largest kernel / plain ratio."""
@@ -2492,7 +2699,8 @@ def main():
                              "slice 8": launches_8[0],
                              **{f"slice 9 {k}": v[0] for k, v in launches_9.items()},
                              "slice 10": launches_10[0],
-                             **{f"slice 11 {k}": v[0] for k, v in launches_11.items()}},
+                             **{f"slice 11 {k}": v[0] for k, v in launches_11.items()},
+                             **{f"slice 12 {k}": v[0] for k, v in launches_12.items()}},
     }, {
         "name": "conv1d_same_f32", "route": "cuda",
         "source": "gennet_tpu_torch/csrc/conv1d_same.cu",
@@ -2509,7 +2717,8 @@ def main():
                              "slice 8": launches_8[1],
                              **{f"slice 9 {k}": v[1] for k, v in launches_9.items()},
                              "slice 10": launches_10[1],
-                             **{f"slice 11 {k}": v[1] for k, v in launches_11.items()}},
+                             **{f"slice 11 {k}": v[1] for k, v in launches_11.items()},
+                             **{f"slice 12 {k}": v[1] for k, v in launches_12.items()}},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -272,6 +272,19 @@ def check_bbh_rows(cfg: BBHConfig, mesh: DataMesh | None):
                    f"the PE bank (training_num {cfg.training_num} less the event twin)")
 
 
+# the run's event in its out dir, for the studies that draw it again
+EVENT_RECORD = "event.npz"
+
+
+def write_event_record(out_dir: str, measured: torch.Tensor):
+    """Keep the run's event and the kind of device it was drawn on (a CUDA
+    generator and a CPU generator give different streams from one seed),
+    so that a study that draws the event again from the seed can check
+    that it drew this one."""
+    np.savez(os.path.join(out_dir, EVENT_RECORD), measured=measured.detach().cpu().numpy(),
+             device=np.array(measured.device.type))
+
+
 def _bbh_bank_cfg(cfg: BBHConfig):
     """Bank geometry from n_pix: templates are the central 1 s at fs, so
     fs = n_pix (n_pix = 1024 is the reference geometry, ref: :123)."""
@@ -373,6 +386,8 @@ def run_bbh(cfg: BBHConfig, *, device, mesh: DataMesh | None = None):
 
     bank, targets, signal, measured, norm, psd, truth, lalinf_samples = _prepare_bbh_data(
         cfg, gen, device)
+    if main:
+        write_event_record(cfg.out_dir, measured)
     gen = _rank_stream(gen, cfg.seed, mesh)
     bank_cfg = _bbh_bank_cfg(cfg)
     n_sig_eff = effective_n_sig(cfg, norm)
@@ -986,6 +1001,20 @@ def burst_cnn_cache_tag(cfg: BurstSmokeConfig) -> str:
 _BURST_BOUNDS = ((0.25, 0.75), (1.0 / 60.0, 1.0 / 15.0))
 
 
+# the event's (t0, τ)
+_BURST_TRUTH = (0.5, 1.0 / 25.0)
+
+
+def burst_event(cfg: BurstSmokeConfig, gen: torch.Generator, device):
+    """The training bank and the fixed event at (t0, τ) = truth, drawn from
+    ``gen`` in this order (ref: :581,614-631): (bank, pars, signal,
+    measured)."""
+    bank, pars = make_burst_bank(gen, cfg.n_signals, N=cfg.n_pix)
+    signal = sine_gaussian(*_BURST_TRUTH, N=cfg.n_pix, device=device)
+    measured = signal + cfg.n_sig * torch.randn(signal.shape, generator=gen, device=device)
+    return bank, pars, signal, measured
+
+
 def run_burst_smoke(cfg: BurstSmokeConfig, *, device, mesh: DataMesh | None = None):
     """The burst mahoGANy on ``device`` (ref: tests/burstMahoGANy.py:569-901):
     analytic bank and event, exact (t0, τ) grid, CNN PE, the 3-loss GAN with
@@ -1007,11 +1036,10 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device, mesh: DataMesh | None = No
     log = MetricLogger(cfg.out_dir if main else None, "burst")
     snap_dir = os.path.join(cfg.out_dir, "GAN_posterior_samples")
 
-    # training bank and the fixed event at (t0, τ) = truth (ref: :581,614-631)
-    bank, pars = make_burst_bank(gen, cfg.n_signals, N=cfg.n_pix)
-    truth = (0.5, 1.0 / 25.0)
-    signal = sine_gaussian(*truth, N=cfg.n_pix, device=device)
-    measured = signal + cfg.n_sig * torch.randn(signal.shape, generator=gen, device=device)
+    bank, pars, signal, measured = burst_event(cfg, gen, device)
+    if main:
+        write_event_record(cfg.out_dir, measured)
+    truth = _BURST_TRUTH
     gen = _rank_stream(gen, cfg.seed, mesh)
     # each rank trains on its block of the bank's rows
     train_bank, train_pars = ((bank, pars) if mesh is None

@@ -25,13 +25,14 @@ import os
 from gennet_tpu_torch import runtime
 
 
-def append_row(path: str, row: dict, label: str):
-    """Append ``row`` as one JSON line to ``path`` and print it after
-    ``label`` (``SWEEP RESULT:``, ``FLAGSHIP RESULT:``)."""
+def append_row(path: str, row: dict, label: str | None = None):
+    """Append ``row`` as one JSON line to ``path`` and, given a ``label``
+    (``SWEEP RESULT:``, ``FLAGSHIP RESULT:``), print it after the label."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "a") as fh:
         fh.write(json.dumps(row) + "\n")
-    print(label, json.dumps(row), flush=True)
+    if label is not None:
+        print(label, json.dumps(row), flush=True)
 
 
 def sweep_main(argv, run_one, default_iters, variants: dict, doc: str):

@@ -432,7 +432,7 @@ def make_gan_step_scan(generator: nn.Module, discriminator: nn.Module, cfg: GANC
 
 def sample_generator(generator: nn.Module, state: GANState, gen: torch.Generator, n: int,
                      cfg: GANConfig, chunk: int = 256, dropout: bool = False,
-                     use_ema: bool = True, temp: float = 1.0, bn_mode: str = "eval"):
+                     use_ema: bool = True, temp: float = 1.0, bn_mode: str = "eval", z=None):
     """Draw ``n`` waveform estimates (n, n_pix) with the state's weights
     run through ``generator`` (which may differ from ``state.generator`` in
     its dropout rate).
@@ -441,6 +441,9 @@ def sample_generator(generator: nn.Module, state: GANState, gen: torch.Generator
     with ``bn_mode="batch"``, BatchNorm uses the chunk's own statistics,
     without committing them. Draws go in full chunks of ``chunk`` latents,
     as in the reference, so batch statistics see the same batch size.
+    ``z``: the latents to use in place of draws from ``gen`` (before
+    ``temp``), a whole number of chunks in draw order (a test passes the
+    reference's).
     """
     weights = {**dict(state.generator.named_parameters()),
                **dict(state.generator.named_buffers())}
@@ -448,13 +451,18 @@ def sample_generator(generator: nn.Module, state: GANState, gen: torch.Generator
         weights.update(state.g_ema)
     center = 0.5 * (cfg.latent_low + cfg.latent_high)
     kwargs = {"train": dropout, "bn_train": True if bn_mode == "batch" else None, "gen": gen}
+    if z is not None:
+        z = torch.as_tensor(z, dtype=torch.float32, device=next(iter(weights.values())).device)
+        if z.shape[0] < n or z.shape[0] % chunk:
+            raise ValueError(f"z has {z.shape[0]} rows: {n} draws take whole chunks of {chunk}")
     outs, done = [], 0
     with torch.no_grad():
         while done < n:
-            z = _uniform(gen, (chunk, cfg.latent_dim), cfg.latent_low, cfg.latent_high)
+            zc = (_uniform(gen, (chunk, cfg.latent_dim), cfg.latent_low, cfg.latent_high)
+                  if z is None else z[done:done + chunk])
             if temp != 1.0:
-                z = center + temp * (z - center)
-            out = torch.func.functional_call(generator, weights, (z,), kwargs)
+                zc = center + temp * (zc - center)
+            out = torch.func.functional_call(generator, weights, (zc,), kwargs)
             outs.append(out.reshape(chunk, -1))
             done += chunk
     return torch.cat(outs)[:n]

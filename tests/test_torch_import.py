@@ -52,3 +52,40 @@ def test_no_import_line_names_jax_or_the_jax_package():
     hits = [f"{os.path.relpath(f, REPO)}:{i}: {line.strip()}"
             for f in files for i, line in enumerate(open(f), 1) if bad.match(line)]
     assert hits == []
+
+
+_STUDIES_PROBE = r"""
+import contextlib, importlib, io, pkgutil, sys
+import gennet_tpu_torch.studies as studies
+names = sorted(m.name for m in pkgutil.iter_modules(studies.__path__) if not m.name.startswith("_"))
+for n in names:
+    mod = importlib.import_module("gennet_tpu_torch.studies." + n)
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        try:
+            mod.main(["--help"])
+        except SystemExit as e:
+            assert e.code == 0, (n, e.code)
+    assert "--device" in out.getvalue(), n
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "gennet_tpu",
+                                      "scripts"))
+print(",".join(names))
+print(",".join(bad))
+"""
+
+
+def test_the_studies_import_no_jax():
+    # gennet_tpu_torch.studies, the ports of the offline studies of
+    # scripts/: each of the eight modules imports in a fresh interpreter
+    # without jax or the JAX package, and its command line answers --help
+    # with its --device option
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _STUDIES_PROBE], capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    names, bad = out.stdout.split("\n")[:2]
+    assert names.split(",") == sorted([
+        "bbh_postproc_eval", "bbh_sampler_calibration", "burst_debias_diag", "burst_pool_study",
+        "burst_rescore_study", "d_memorization_probe", "elbo_stack_eval", "twin_cue_probe"])
+    assert bad == "", f"gennet_tpu_torch.studies pulled in: {bad}"
