@@ -2166,7 +2166,7 @@ def main():
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     _build.load()
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.BUILD_SECONDS:.1f} s)")
+    print(f"build: {time.perf_counter() - t0:.1f} s")
     print(_build.BUILD_LOG.strip())
 
     # ---- 3. phasor kernel vs plain ----------------------------------------

@@ -14,7 +14,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -25,7 +24,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _LIB = None
 BUILD_LOG = ""          # nvcc's output (ptxas register/shared-memory report)
-BUILD_SECONDS = 0.0     # 0.0 when the library came from an earlier build
 
 
 def _nvcc() -> str:
@@ -51,7 +49,7 @@ def load() -> ctypes.CDLL:
 
     Raises ``RuntimeError`` with nvcc's output if the build fails.
     """
-    global _LIB, BUILD_LOG, BUILD_SECONDS
+    global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
     sources = sorted(CSRC.glob("*.cu"))
@@ -62,7 +60,6 @@ def load() -> ctypes.CDLL:
         objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
         tmp = lib_path.with_suffix(f".{tag}")
         nvcc = _nvcc()
-        t0 = time.perf_counter()
         procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for src, obj in zip(sources, objs)]
@@ -73,7 +70,6 @@ def load() -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed on {', '.join(failed)}\n{BUILD_LOG}")
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_SECONDS = time.perf_counter() - t0
         for obj in objs:
             obj.unlink(missing_ok=True)
         if proc.returncode != 0:

@@ -26,10 +26,11 @@ launches it recorded are taken back out of the wrappers' ``LAUNCHES`` and
 added again at each replay, and after the replays the version counter of
 every tensor the step updates is bumped, so that no weight pack cached
 from their old values is served (:func:`gennet_tpu_torch.ops.tf32.cached_pack`).
-The caller advances its own step count.
+The caller advances its own step count. A capture records the
+``graph.warmup`` and ``graph.capture`` spans, the replays ``graph.replay``
+(:mod:`gennet_tpu_torch.runtime.trace`).
 """
 
-import time
 import traceback
 
 import torch
@@ -37,6 +38,7 @@ import torch
 from gennet_tpu_torch.ops import conv1d as conv_ops
 from gennet_tpu_torch.ops import phasor_dft as phasor_ops
 from gennet_tpu_torch.ops import tf32
+from gennet_tpu_torch.runtime import trace
 
 # eager iterations before a capture: optimizer state, cuBLAS workspaces
 # and the kernels' one-time attributes are set up outside the graph
@@ -98,7 +100,10 @@ class StepGraph:
         self.name = name
         self.graphable = graphable
         self.launches = {}       # kernel wrapper → launches one replay makes
-        self.capture_s = None    # seconds the last capture took (warm-up excluded)
+        # seconds of the last ``graph.capture`` span, from the card idle
+        # after the warm-up (its sync closes ``graph.warmup``) to the card
+        # idle after the capture
+        self.capture_s = None
         self.replays = 0
         self._graph = None
         self._sig = None
@@ -123,19 +128,26 @@ class StepGraph:
         sig = _signature(tensors(), generators)
         if self._graph is None or sig != self._sig or n > self._buf.shape[0]:
             self._drop()
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                rows = [step() for _ in range(WARMUP)]
-            torch.cuda.current_stream().wait_stream(side)
-            self._capture(step, list(rows[0]), generators, n)
+            with trace.span("graph.warmup"):
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    rows = [step() for _ in range(WARMUP)]
+                torch.cuda.current_stream().wait_stream(side)
+                graph = self._new_graph(list(rows[0]), generators, n)
+                torch.cuda.synchronize()
+            with trace.span("graph.capture") as took:
+                self._capture(graph, step)
+                torch.cuda.synchronize()
+            self.capture_s = took.seconds
             sig = self._sig = _signature(tensors(), generators)
         buf, n_eager = self._buf, len(rows)
         if rows:
             buf[:n_eager] = torch.stack([self._vector(r) for r in rows])
         self._row.fill_(n_eager)
-        for _ in range(n - n_eager):
-            self._graph.replay()
+        with trace.span("graph.replay", replays=n - n_eager):
+            for _ in range(n - n_eager):
+                self._graph.replay()
         self.replays += n - n_eager
         for mod, k in self.launches.items():
             mod.LAUNCHES += k * (n - n_eager)
@@ -147,7 +159,9 @@ class StepGraph:
     def _vector(self, metrics: dict) -> torch.Tensor:
         return torch.stack([metrics[k].detach().to(torch.float32).reshape(()) for k in self._keys])
 
-    def _capture(self, step, keys, generators, capacity):
+    def _new_graph(self, keys, generators, capacity) -> torch.cuda.CUDAGraph:
+        """The metric rows' buffer and counter, and a graph that will
+        record every generator in ``generators``."""
         dev = torch.cuda.current_device()
         self._keys = keys
         self._buf = torch.zeros((capacity, len(keys)), dtype=torch.float32, device=dev)
@@ -155,9 +169,12 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         for gen in generators:
             graph.register_generator_state(gen)
+        return graph
+
+    def _capture(self, graph, step):
+        """Record one iteration of ``step`` into ``graph``; called with the
+        card idle."""
         before = {mod: mod.LAUNCHES for mod in _COUNTED}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         try:
             with tf32.capturing(), torch.cuda.graph(graph):
                 vec = self._vector(step())
@@ -172,7 +189,5 @@ class StepGraph:
             captured = {mod: mod.LAUNCHES - before[mod] for mod in _COUNTED}
             for mod in _COUNTED:
                 mod.LAUNCHES = before[mod]
-        torch.cuda.synchronize()
-        self.capture_s = time.perf_counter() - t0
         self.launches = {mod: k for mod, k in captured.items() if k}
         self._graph = graph

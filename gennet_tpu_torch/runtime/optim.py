@@ -4,6 +4,8 @@ and by ``ml_recenter``'s refinement."""
 
 import torch
 
+from gennet_tpu_torch.runtime import trace
+
 
 def adam(params, lr: float, beta1: float):
     """optax.adam: m̂/(√v̂ + 1e-8), b2 = 0.999. For parameters on a card it
@@ -11,10 +13,12 @@ def adam(params, lr: float, beta1: float):
     graph can record its step; eager steps on the card take the same form,
     so that they round as the replays do. The CPU keeps the plain form."""
     params = list(params)
-    if params and params[0].is_cuda:
-        lr = torch.tensor(lr, dtype=torch.float32, device=params[0].device)
-        return torch.optim.Adam(params, lr=lr, betas=(beta1, 0.999), eps=1e-8, capturable=True)
-    return torch.optim.Adam(params, lr=lr, betas=(beta1, 0.999), eps=1e-8)
+    with trace.span("optim.adam"):
+        if params and params[0].is_cuda:
+            lr = torch.tensor(lr, dtype=torch.float32, device=params[0].device)
+            return torch.optim.Adam(params, lr=lr, betas=(beta1, 0.999), eps=1e-8,
+                                    capturable=True)
+        return torch.optim.Adam(params, lr=lr, betas=(beta1, 0.999), eps=1e-8)
 
 
 def init_adam_state(opt: torch.optim.Adam):

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from gennet_tpu_torch.models.layers import reset_module
-from gennet_tpu_torch.runtime import graphs
+from gennet_tpu_torch.runtime import graphs, trace
 from gennet_tpu_torch.runtime.optim import adam
 from gennet_tpu_torch.train import losses as L
 from gennet_tpu_torch.train.mesh import DataMesh, running_stats
@@ -189,16 +189,18 @@ def make_cnn_step_scan(model: nn.Module, cfg: CNNConfig, n_steps: int,
     bank, targets, gen) → (state, metrics stacked over the n_steps
     iterations)``. On a card the iterations are replays of one captured
     step (:class:`~gennet_tpu_torch.runtime.graphs.StepGraph`, exposed as
-    ``step.graph``), elsewhere eager steps."""
+    ``step.graph``), elsewhere eager steps. Each call records a ``chunk``
+    span (:mod:`~gennet_tpu_torch.runtime.trace`)."""
     device = next(model.parameters()).device
     graph = graphs.StepGraph("CNN step", graphs.graphable(device, mesh, "the CNN step"))
 
     def step(state, bank, targets, gen):
-        start = state.step
-        m = graph.run(n_steps,
-                      lambda: cnn_step(state, bank, targets, gen, cfg=cfg, mesh=mesh)[1],
-                      lambda: state_tensors(state) + [bank, targets], (gen,))
-        state.step = start + n_steps
+        with trace.span("chunk", graph=graph.name, n=n_steps):
+            start = state.step
+            m = graph.run(n_steps,
+                          lambda: cnn_step(state, bank, targets, gen, cfg=cfg, mesh=mesh)[1],
+                          lambda: state_tensors(state) + [bank, targets], (gen,))
+            state.step = start + n_steps
         return state, m
 
     step.graph = graph

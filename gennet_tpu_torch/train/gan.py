@@ -38,7 +38,7 @@ import torch
 from torch import nn
 
 from gennet_tpu_torch.models.layers import replay, reset_module
-from gennet_tpu_torch.runtime import graphs
+from gennet_tpu_torch.runtime import graphs, trace
 from gennet_tpu_torch.runtime.optim import adam, init_adam_state
 from gennet_tpu_torch.train import losses as L
 from gennet_tpu_torch.train.cnn import ema_update, param_copy
@@ -408,22 +408,25 @@ def make_gan_step_scan(generator: nn.Module, discriminator: nn.Module, cfg: GANC
     iterations)``. The chunk's knobs (the config's by default) are copied
     into 0-d tensors the step reads. On a card the iterations are replays
     of one captured step (:class:`~gennet_tpu_torch.runtime.graphs.StepGraph`,
-    exposed as ``step.graph``), elsewhere eager steps."""
+    exposed as ``step.graph``), elsewhere eager steps. Each call records a
+    ``chunk`` span (:mod:`~gennet_tpu_torch.runtime.trace`)."""
     device = next(generator.parameters()).device
     graph = graphs.StepGraph("GAN step", graphs.graphable(device, mesh, "the GAN step"))
     base = knobs_from_cfg(cfg)
     static = knob_tensors(base, device)
 
     def step(state, bank, measured, gen, knobs=None):
-        knob_tensors(base if knobs is None else knobs, device, into=static)
-        start = state.step
-        m = graph.run(n_steps,
-                      lambda: gan_step(state, bank, measured, gen, static, cfg=cfg, mesh=mesh)[1],
-                      lambda: state_tensors(state) + [bank, measured,
-                                                      *(getattr(static, f.name)
-                                                        for f in fields(GANKnobs))],
-                      (gen,))
-        state.step = start + n_steps
+        with trace.span("chunk", graph=graph.name, n=n_steps):
+            knob_tensors(base if knobs is None else knobs, device, into=static)
+            start = state.step
+            m = graph.run(n_steps,
+                          lambda: gan_step(state, bank, measured, gen, static, cfg=cfg,
+                                           mesh=mesh)[1],
+                          lambda: state_tensors(state) + [bank, measured,
+                                                          *(getattr(static, f.name)
+                                                            for f in fields(GANKnobs))],
+                          (gen,))
+            state.step = start + n_steps
         return state, m
 
     step.graph = graph
