@@ -25,6 +25,15 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    D Conv_0 and D Conv_1 at their native stride 2) and dx at batch 8, every activation at G Conv_3's and G Conv_0's shapes, and
    Cin 2048 (≤ 1e-4·max against plain, ≤ 1e-5·max against float64), two
    calls bitwise equal, with CUDA-event times;
+5b. stride-2 dx kernel (``ops/conv1d_dx.py``, :func:`conv_dx_check`): at
+   each stride-2 layer whose dx the benchmark's cells route to it, the
+   kernel against its plain version (≤ 1e-4·max), against float64 within
+   twice cuDNN's FP32 dgrad's error on the same inputs, two calls bitwise
+   equal, the pack kernel bit for bit, CUDA-event times beside cuDNN's
+   dgrad; through ``Conv1d`` one dx launch, dw and db bitwise
+   ``F.conv1d``'s, an eager backward bitwise equal to a captured replay;
+   exactly 5 launches a ``DualBranchPE`` iteration and 1 a ``BurstPE``
+   one, read at the chunk's capture;
 6. slice 1: ``train-bbh`` through the CLI at n_pix 1024 with the full-width
    G, D and PE, 20 PE and 20 GAN steps, default recipe, with the phasor
    kernel's launch count read around the run;
@@ -252,6 +261,35 @@ def cuda_ms(fn, n=N_TIMED, warmup=3) -> float:
     return times[len(times) // 2]
 
 
+def graph_ms(fn, reps=N_TIMED, rounds=5) -> float:
+    """Median over ``rounds`` of one replay's device ms, ``fn()`` captured
+    once in a CUDA graph and replayed ``reps`` times a round: the kernel
+    alone, without the host's launch time (which ``cuda_ms`` counts for a
+    call shorter than its launch)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    times = []
+    for _ in range(rounds):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    times.sort()
+    return times[len(times) // 2]
+
+
 def compare(name, amp, phase, cos_t, sin_t, P):
     """Kernel vs plain on one input; returns (kernel out, plain out, abs err, rel err)."""
     import torch
@@ -292,6 +330,147 @@ def conv_compare(name, x, w, b, stride, act, C):
     if not torch.equal(out, C.conv1d(x, w, b, stride=stride, act=act)):
         fail(f"conv {name}: two calls on the same input differ")
     return err, rel, e64
+
+
+# the stride-2 layers whose dx the conv1d_dx kernel computes in the
+# benchmark's cells: (name, B, L in, Cin, Cout, padding)
+DX_LAYERS = [("q_convs.3", 64, 1016, 256, 512, "VALID"), ("q_convs.4", 64, 506, 512, 1024, "VALID"),
+             ("mc_convs.1", 64, 512, 64, 128, "VALID"), ("mc_convs.2", 64, 254, 128, 256, "VALID"),
+             ("mc_convs.3", 64, 125, 256, 512, "VALID"),
+             ("BurstPE conv1", 64, 256, 64, 128, "VALID"),
+             ("G Conv_0", 8, 1024, 256, 64, "SAME"), ("D Conv_1", 8, 512, 256, 512, "SAME")]
+
+
+def dx_cost(B: int, L: int, cin: int, cout: int, K: int = 5) -> tuple:
+    """(flops, bytes) of one stride-2 dx over an input of length L: the
+    forward's products; dy and w read, dx written."""
+    Ly = (L - K) // 2 + 1
+    return (2.0 * B * Ly * K * cin * cout,
+            4.0 * (B * cout * Ly + cout * cin * K + B * cin * L))
+
+
+def conv_dx_check(S, card) -> dict:
+    """The stride-2 dx kernel on the card (phase 5b); ``S`` is
+    ``gennet_tpu_torch.ops.conv1d_dx``. Returns its rows by layer and its
+    launches per PE iteration."""
+    import torch
+    import torch.nn.functional as F
+
+    from gennet_tpu_torch.models import BurstPE, DualBranchPE
+    from gennet_tpu_torch.models.layers import Conv1d
+    from gennet_tpu_torch.train import cnn as tcnn
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+    rows = {}
+    for name, B, L_in, cin, cout, padding in DX_LAYERS:
+        x = torch.randn((B, cin, L_in), generator=g, device=dev)
+        if padding == "SAME":  # Conv1d's flax padding at stride 2
+            total = max((-(-L_in // 2) - 1) * 2 + 5 - L_in, 0)
+            x = F.pad(x, (total // 2, total - total // 2))
+        L = x.shape[-1]
+        w = torch.randn((cout, cin, 5), generator=g, device=dev) / math.sqrt(5 * cin)
+        dy = torch.randn((B, cout, (L - 5) // 2 + 1), generator=g, device=dev)
+        got = S.conv1d_dx(dy, w, L)
+        plain = S.conv1d_dx_ref(dy, w, L)
+
+        def cudnn():
+            return torch.nn.grad.conv1d_input(x.shape, w, dy, stride=2)
+
+        n = min(B, 8)  # float64 on the card is slow: the first 8 rows, for both
+        r64 = S.conv1d_dx_ref(dy[:n].double(), w.double(), L)
+        err, e_k, e_c = rel(got, plain), rel(got[:n], r64), rel(cudnn()[:n], r64)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()) or not err <= CONV_TOL:
+            fail(f"conv dx {name}: kernel off its plain version by {err:.3e} of the maximum")
+        if not e_k <= 2 * e_c:
+            fail(f"conv dx {name}: kernel off float64 by {e_k:.3e}, over twice cuDNN's {e_c:.3e}")
+        if not torch.equal(got, S.conv1d_dx(dy, w, L)):
+            fail(f"conv dx {name}: two calls on the same input differ")
+        bn = S.tile_n(cin)
+        if not torch.equal(S._pack_on_card(w, bn).view(torch.int32),
+                           S.pack_weight(w, bn).view(torch.int32)):
+            fail(f"conv dx {name}: the pack kernel differs from pack_weight")
+        del r64, plain
+        k1 = graph_ms(lambda: S.conv1d_dx(dy, w, L))
+        c1 = graph_ms(cudnn)
+        k2 = graph_ms(lambda: S.conv1d_dx(dy, w, L))
+        c2 = graph_ms(cudnn)
+        pack_ms = graph_ms(lambda: S._pack_on_card(w, bn))
+        flops, nbytes = dx_cost(B, L, cin, cout)
+        bms, bby = bound(flops, nbytes)
+        k_ms, c_ms = min(k1, k2), min(c1, c2)
+        rows[name] = {"B": B, "L": L, "cin": cin, "cout": cout, "kernel_ms": k_ms,
+                      "cudnn_ms": c_ms, "pack_ms": pack_ms, "bound_ms": bms, "bound_by": bby,
+                      "at": bms / k_ms, "cudnn_at": bms / c_ms, "rel_plain": err,
+                      "f64_kernel": e_k, "f64_cudnn": e_c}
+        print(f"conv dx {name} (B={B} L={L} Cin={cin} Cout={cout}): rel {err:.2e} against plain "
+              f"(limit {CONV_TOL:g}); against float64 kernel {e_k:.2e}, cuDNN FP32 dgrad "
+              f"{e_c:.2e}; kernel {k1:.4f}/{k2:.4f} ms, cuDNN dgrad {c1:.4f}/{c2:.4f} ms (graph "
+              f"replays, order kernel, cuDNN, kernel, cuDNN), pack {pack_ms:.4f} ms; kernel "
+              f"{flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s, cuDNN "
+              f"{flops / (c_ms * 1e-3) / 1e12:.2f}; bound {bms:.4f} ms by {bby} "
+              f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), kernel at {bms / k_ms:.2f}, "
+              f"cuDNN at {bms / c_ms:.3f} [{card}]")
+        del x, w, dy, got
+
+    # through the layer: one dx launch, dw and db bitwise F.conv1d's, and
+    # an eager backward bitwise equal to a captured replay
+    layer = Conv1d(512, 1024, 5, stride=2, padding="VALID").to(dev)
+    x = torch.randn((64, 512, 506), generator=g, device=dev, requires_grad=True)
+    params = (layer.weight, layer.bias)
+    side = torch.cuda.Stream()  # the forward on the capture's stream, as its backward runs there
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = layer(x)
+        dy = torch.randn(y.shape, generator=g, device=dev)
+        before = S.LAUNCHES
+        got = torch.autograd.grad(y, (x, *params), dy, retain_graph=True)
+        launched = S.LAUNCHES - before
+        want = torch.autograd.grad(F.conv1d(x, *params, stride=2), (x, *params), dy)
+    torch.cuda.current_stream().wait_stream(side)
+    if launched != 1 or not rel(got[0], want[0]) <= CONV_TOL:
+        fail(f"conv dx layer: {launched} launches, dx off cuDNN's by {rel(got[0], want[0]):.3e}")
+    if not (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])):
+        fail("conv dx layer: dw or db differs from F.conv1d's")
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        replayed = torch.autograd.grad(y, (x, *params), dy, retain_graph=True)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            replayed = torch.autograd.grad(y, (x, *params), dy, retain_graph=True)
+    torch.cuda.current_stream().wait_stream(side)
+    for t in replayed:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(replayed, got)):
+        fail("conv dx layer: a captured replay differs from the eager backward")
+    print(f"conv dx layer q_convs.4 through Conv1d: 1 dx launch; dw and db bitwise F.conv1d's; "
+          f"an eager backward bitwise equal to a captured replay [{card}]")
+    del layer, x, y, dy, got, want, replayed, graph
+
+    # launches per PE iteration, read at the chunk's capture
+    launches = {}
+    for model, n_pix, expect in ((DualBranchPE(n_pix=1024), 1024, 5), (BurstPE(n_pix=512), 512, 1)):
+        cfg = tcnn.CNNConfig(n_pix=n_pix, batch_size=64)
+        st = tcnn.init_cnn(torch.Generator().manual_seed(1), model, cfg, dev)
+        bank = torch.randn((4096, n_pix), generator=g, device=dev)
+        targets = torch.rand((4096, 2), generator=g, device=dev)
+        scan = tcnn.make_cnn_step_scan(st.model, cfg, 5)
+        before = S.LAUNCHES
+        st, _ = scan(st, bank, targets, torch.Generator(device=dev).manual_seed(2))
+        per, total = scan.graph.launches.get(S, 0), S.LAUNCHES - before
+        launches[type(model).__name__] = per
+        print(f"conv dx launches: {type(model).__name__} {per} an iteration at the capture, "
+              f"{total} over a chunk of 5 (expected {expect} and {5 * expect}) [{card}]")
+        if per != expect or total != 5 * expect:
+            fail(f"conv dx: {type(model).__name__} launched {per} an iteration, {total} a chunk")
+    return {"rows": rows, "launches": launches}
 
 
 def read_rows(path):
@@ -2325,6 +2504,11 @@ def main():
                   f"plain {e64[1]:.2e}")
         del x, w, b
 
+    # ---- 5b. the stride-2 dx kernel ------------------------------------------
+    from gennet_tpu_torch.ops import conv1d_dx as S
+
+    dx_summary = conv_dx_check(S, card)
+
     # ---- 6. slice 1: train-bbh through the CLI, default recipe -------------
     from gennet_tpu_torch.cli.main import main as cli_main
 
@@ -2719,6 +2903,11 @@ def main():
                              "slice 10": launches_10[1],
                              **{f"slice 11 {k}": v[1] for k, v in launches_11.items()},
                              **{f"slice 12 {k}": v[1] for k, v in launches_12.items()}},
+    }, {
+        "name": "conv1d_dx_s2_f32", "route": "cuda",
+        "source": "gennet_tpu_torch/csrc/conv1d_dx_s2.cu",
+        "replaces": None, "library": "cuDNN FP32 dgrad (deterministic)",
+        "launches_per_iteration": dx_summary["launches"], "rows": dx_summary["rows"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

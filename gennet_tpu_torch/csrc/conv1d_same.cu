@@ -87,26 +87,6 @@ __device__ __forceinline__ float apply_act(float y, int act, float slope) {
   }
 }
 
-// One tap of a chunk: wait for the products that last read `a` (two taps
-// back), build the tap's A fragments from the window (xk: this thread's
-// first element at this tap), issue 3 * MT wgmmas (the chunk's first tap
-// restarts the partial sums).
-template <int BN, int MT>
-__device__ __forceinline__ void conv_tap(float (&acc)[MT][BN / 2], SplitA (&a)[MT],
-                                         const float* xk, int xw4, uint64_t dh, uint64_t dl,
-                                         bool fresh) {
-  wgmma_wait<1>();
-#pragma unroll
-  for (int t = 0; t < MT; ++t)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)  // row + 8 (i & 1), channel + 4 (i >> 1)
-      split_tf32(xk[t * 64 + 8 * (i & 1) + (i >> 1) * xw4], a[t].hi[i], a[t].lo[i]);
-  wgmma_fence();
-#pragma unroll
-  for (int t = 0; t < MT; ++t) mma_3xtf32<BN>(acc[t], a[t], dh, dl, fresh);
-  wgmma_commit();
-}
-
 template <int BN, int MT>
 __global__ void __launch_bounds__(THREADS, 1) conv1d_kernel(const Conv p) {
   constexpr int BM = 128 * MT;
@@ -246,16 +226,6 @@ int launch_fitted(const Conv& p, int B, cudaStream_t stream) {
     if (wide >= sm_count()) return launch<BN, 2>(p, B, stream);
   }
   return launch<BN, 1>(p, B, stream);
-}
-
-// hi, lo of x as ops/tf32.py::split_tf32 makes them, on the bit pattern.
-__device__ __forceinline__ void split_bits(float x, float& hi, float& lo) {
-  const uint32_t bits = __float_as_uint(x);
-  float h = __uint_as_float((bits + 0x1000u) & 0xFFFFE000u);
-  if (isfinite(x) && !isfinite(h)) h = __uint_as_float(bits & 0xFFFFE000u);
-  if (isnan(x)) h = x;
-  hi = h;
-  lo = isfinite(x) ? x - h : 0.f;
 }
 
 // The weight pack, one thread per element of a hi tile: element `in` of

@@ -1,5 +1,5 @@
 // 3xTF32 warpgroup matrix multiply for Hopper (sm_90a), shared by the
-// port's kernels (conv1d_same.cu, phasor_irdft.cu).
+// port's kernels (conv1d_same.cu, conv1d_dx_s2.cu, phasor_irdft.cu).
 //
 // A float32 product a*b is taken as three TF32 tensor-core products,
 //
@@ -62,7 +62,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // ---- warp specialisation and the rings of shared-memory stages -------
-// Both kernels run two consumer warpgroups (the products) and one producer
+// The kernels run two consumer warpgroups (the products) and one producer
 // warpgroup (the copies). The producer hands most of its registers to the
 // consumers: 2 * 128 * CONSUMER_REGS + 128 * PRODUCER_REGS <= 65536.
 // Each stage has a `full` mbarrier (its copies have landed) and an `empty`
@@ -285,6 +285,36 @@ __device__ __forceinline__ void promote(float (&total)[R], float (&partial)[R]) 
   fence_operands(partial);
 #pragma unroll
   for (int i = 0; i < R; ++i) total[i] += partial[i];
+}
+
+// One tap of a chunk: wait for the products that last read `a` (two taps
+// back), build the tap's A fragments from the window (xk: this thread's
+// first element at this tap), issue 3 * MT wgmmas (the chunk's first tap
+// restarts the partial sums).
+template <int BN, int MT>
+__device__ __forceinline__ void conv_tap(float (&acc)[MT][BN / 2], SplitA (&a)[MT],
+                                         const float* xk, int xw4, uint64_t dh, uint64_t dl,
+                                         bool fresh) {
+  wgmma_wait<1>();
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)  // row + 8 (i & 1), channel + 4 (i >> 1)
+      split_tf32(xk[t * 64 + 8 * (i & 1) + (i >> 1) * xw4], a[t].hi[i], a[t].lo[i]);
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < MT; ++t) mma_3xtf32<BN>(acc[t], a[t], dh, dl, fresh);
+  wgmma_commit();
+}
+
+// hi, lo of x as ops/tf32.py::split_tf32 makes them, on the bit pattern.
+__device__ __forceinline__ void split_bits(float x, float& hi, float& lo) {
+  const uint32_t bits = __float_as_uint(x);
+  float h = __uint_as_float((bits + 0x1000u) & 0xFFFFE000u);
+  if (isfinite(x) && !isfinite(h)) h = __uint_as_float(bits & 0xFFFFE000u);
+  if (isnan(x)) h = x;
+  hi = h;
+  lo = isfinite(x) ? x - h : 0.f;
 }
 
 // SMs of the current device (132 on an H100 SXM), read once: the kernels

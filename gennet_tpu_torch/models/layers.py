@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gennet_tpu_torch.ops import conv1d as conv1d_ops
+from gennet_tpu_torch.ops import conv1d_dx
 
 # std of a unit normal truncated to [−2, 2]; flax divides by it so the
 # truncated draw keeps the requested variance
@@ -69,6 +70,13 @@ class Conv1d(nn.Module):
     the output by one sample). ``"VALID"`` pads nothing. Weight layout
     (Cout, Cin, K) = flax kernel (K, Cin, Cout) transposed. Computes in
     ``compute_dtype``.
+
+    On a card, a float32 call at stride 2 with at least 8 input channels
+    takes its input gradient from the port's kernel
+    (:func:`~gennet_tpu_torch.ops.conv1d_dx.conv1d_s2`; the rule is
+    :func:`~gennet_tpu_torch.ops.conv1d_dx.routes`); its forward, weight
+    gradient and bias gradient stay cuDNN's and torch's. Every other call
+    is ``F.conv1d``.
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 1,
@@ -94,6 +102,8 @@ class Conv1d(nn.Module):
             x = F.pad(x, (pad_total // 2, pad_total - pad_total // 2))
         x, w, b = _cast(self.compute_dtype, x, self.weight, self.bias)
         if b.dtype == torch.float32:
+            if conv1d_dx.routes(x, w, self.stride):
+                return conv1d_dx.conv1d_s2(x, w, b)
             return F.conv1d(x, w, b, stride=self.stride)
         return F.conv1d(x, w, stride=self.stride) + b[:, None]
 

@@ -86,6 +86,10 @@ def load() -> ctypes.CDLL:
     lib.conv1d_same_f32.restype = ctypes.c_int
     lib.conv1d_pack_weight_f32.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.conv1d_pack_weight_f32.restype = ctypes.c_int
+    lib.conv1d_dx_s2_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.conv1d_dx_s2_f32.restype = ctypes.c_int
+    lib.conv1d_dx_s2_pack_f32.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.conv1d_dx_s2_pack_f32.restype = ctypes.c_int
     lib.gennet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.gennet_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib

@@ -79,11 +79,11 @@ def tile_n(cout: int) -> int:
     return next((n for n in (8, 16, 32, 64) if cout <= n), 128)
 
 
-def pack_weight(w: torch.Tensor, transposed: bool = False) -> torch.Tensor:
+def pack_weight(w: torch.Tensor, transposed: bool = False, bn: int | None = None) -> torch.Tensor:
     """The kernel's B operand: the 3xTF32 split (hi, lo) of the weight, laid
     out as the shared-memory image of each pipeline stage,
 
-        (Cout / BN, cin8 / 8, hi|lo, K, 2, BN / 8, 8, 4)   BN = tile_n(Cout)
+        (Cout / BN, cin8 / 8, hi|lo, K, 2, BN / 8, 8, 4)   BN = bn or tile_n(Cout)
 
     i.e. for each N tile and 8-channel chunk, per tap a K-major BN x 8 tile
     of 2 x BN/8 core matrices of 8 rows x 4 channels, Cout padded to BN and
@@ -93,7 +93,7 @@ def pack_weight(w: torch.Tensor, transposed: bool = False) -> torch.Tensor:
     makes the same pack on the card in one launch (:func:`_pack_on_card`)."""
     taps = w.flip(-1).transpose(0, 1) if transposed else w  # (Cout', Cin', K)
     cout, cin, K = taps.shape
-    bn = tile_n(cout)
+    bn = bn or tile_n(cout)
     full = F.pad(taps, (0, 0, 0, -cin % 8, 0, -cout % bn))
     tiles = full.reshape(-1, bn // 8, 8, full.shape[1] // 8, 2, 4, K).permute(0, 3, 6, 4, 1, 2, 5)
     return torch.stack(split_tf32(tiles.contiguous()), dim=2).contiguous()
