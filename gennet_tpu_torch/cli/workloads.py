@@ -42,8 +42,6 @@ is ``plots=True`` without matplotlib.
 
 import copy
 import dataclasses
-import functools
-import glob
 import json
 import os
 from collections import deque
@@ -65,9 +63,10 @@ from gennet_tpu_torch.models import (BBHGenerator, BurstDiscriminator, BurstGene
 from gennet_tpu_torch.physics import priors
 from gennet_tpu_torch.physics import psd as psd_mod
 from gennet_tpu_torch.physics.burst import make_burst_bank, sine_gaussian
-from gennet_tpu_torch.train.checkpoints import (CheckpointManager, save_posterior_snapshot,
+from gennet_tpu_torch.train.checkpoints import (CheckpointManager, list_posterior_snapshots,
+                                                load_posterior_snapshot, save_posterior_snapshot,
                                                 state_dict_of)
-from gennet_tpu_torch.train.cnn import (CNNConfig, cnn_step, init_cnn, make_cnn_step_scan,
+from gennet_tpu_torch.train.cnn import (CNNConfig, init_cnn, make_cnn_step, make_cnn_step_scan,
                                         normalize_max)
 from gennet_tpu_torch.train.cnn import predict as cnn_predict
 from gennet_tpu_torch.train.gan import (GANConfig, GANState, gan_step, init_gan, knobs_from_cfg,
@@ -291,6 +290,34 @@ def _bbh_bank_cfg(cfg: BBHConfig):
     return tb.BankConfig(fs=int(cfg.n_pix))
 
 
+def bbh_pe_config(cfg: BBHConfig) -> CNNConfig:
+    """The run's CNN PE config."""
+    return CNNConfig(n_pix=cfg.n_pix, batch_size=cfg.pe_batch_size, lr=cfg.lr,
+                     noise_frac=cfg.cnn_noise_frac, ema_decay=cfg.pe_ema_decay,
+                     lr_decay_steps=cfg.pe_iters if cfg.pe_lr_decay else 0)
+
+
+# the exact grid's (mc, q) box: the library selection's search-window prior
+BBH_BOUNDS = (gp.BBH_MC_RANGE, gp.BBH_Q_RANGE)
+
+
+def bbh_synth(psd, bank_cfg, norm, device, clip: bool):
+    """The BBH forward model: templates of (mc, q) rows on ``device``.
+    ``clip`` bounds (mc, q) to where the PhenomD fits are sane (the
+    hunt_constrain prior is mc 20-35, q ≥ 0.5; ML refinement's Adam can
+    wander to the corners)."""
+
+    def synth(sm):
+        sm = torch.as_tensor(sm, dtype=torch.float32, device=device)
+        mc, q = sm[:, 0], sm[:, 1]
+        if clip:
+            mc, q = torch.clamp(mc, 5.0, 60.0), torch.clamp(q, 0.2, 1.0)
+        m1s, m2s = priors.mc_q_to_m1m2(mc, q)
+        return tb.make_templates_from_params(m1s, m2s, psd, bank_cfg, norm)
+
+    return synth
+
+
 def _prepare_bbh_data(cfg: BBHConfig, gen: torch.Generator, device, skip_bank: bool = False):
     """Event and bank, all on ``device`` (ref: workloads.py:1168-1225).
     Returns (bank, targets, signal, measured, norm, psd, truth,
@@ -357,6 +384,14 @@ def _snapshot(state: GANState) -> GANState:
                     g_ema=copy.deepcopy(state.g_ema), step=state.step)
 
 
+def _final_states(snapshots, state: GANState, n_snapshots: int) -> list:
+    """The states the final cloud pools: under ``n_snapshots`` > 1 the
+    pooled snapshots, plus the final state unless the last eval took it."""
+    if n_snapshots <= 1 or not snapshots:
+        return [state]
+    return list(snapshots) + ([] if snapshots[-1].step == state.step else [state])
+
+
 def _anneal_knobs(gan_cfg: GANConfig, cfg):
     """(base knobs, terminal-anneal knobs, first annealed step index): for
     the last ``anneal_frac`` of the iterations D is frozen (gate −1) and G's
@@ -365,6 +400,83 @@ def _anneal_knobs(gan_cfg: GANConfig, cfg):
     base = knobs_from_cfg(gan_cfg)
     return (base, dataclasses.replace(base, d_acc_gate=-1.0, adv_weight=0.0),
             int(cfg.gan_iters * (1.0 - cfg.anneal_frac)))
+
+
+def _chunk_size(cadence: int, *divides: int) -> int:
+    """The reference's chunk rule: ``cadence`` iterations per call when it
+    divides each of ``divides`` (the schedule and, where a loop has them,
+    the evals, the checkpoints and the start), else 1."""
+    return cadence if cadence > 1 and all(n % cadence == 0 for n in divides) else 1
+
+
+def _chunk_step(make_step, make_scan, chunk: int, *args, mesh: DataMesh | None):
+    """The step of one chunk: ``make_scan(*args, chunk)`` when the chunk is
+    over 1, else ``make_step(*args)``. It returns the state and the metrics
+    of the chunk's last iteration."""
+    if chunk == 1:
+        return make_step(*args, mesh=mesh)
+    scan = make_scan(*args, chunk, mesh=mesh)
+
+    def step(*a):
+        state, m = scan(*a)
+        return state, {k: v[-1] for k, v in m.items()}
+
+    return step
+
+
+def _whiteness_score(ws: dict) -> float:
+    """The share of the three whiteness tests the residual passes."""
+    return (ws["mean_pass"] + ws["var_pass"] + ws["ljung_box_pass"]) / 3.0
+
+
+def apply_routes(samples, synth, cnn, measured, n_sig: float, gen, cfg, report: bool = True):
+    """The truth-free post-processing ``cfg`` asks for, on a CNN cloud
+    (:mod:`gennet_tpu_torch.eval.posterior_post`): the ELBO-selected route
+    under ``select_route``, else ``pe_debias``, ``pe_bootcal``, ``pe_mlrc``
+    and ``reweight_temper`` chained in that order. ``report`` prints the
+    auto route and the resample's ESS (one synthesis more). Returns (cloud,
+    route name, its ELBO, whether the rows were resampled); the name and
+    the ELBO are None unless ``select_route`` chose, and without a route
+    the cloud is ``samples`` itself."""
+    if cfg.select_route == "elbo":
+        route, samples, scores = pp.select_route(
+            samples, synth, cnn, measured, n_sig, gen,
+            temper=cfg.reweight_temper if cfg.reweight_temper > 0 else 1.0)
+        if report:
+            print(f"auto route: {route} (ELBO {scores[route]:.1f})")
+        return samples, route, scores[route], route.endswith("reweight")
+    if cfg.pe_debias > 0:
+        samples = pp.self_calibrate(samples, synth, cnn, gen, n_sig, rounds=cfg.pe_debias)
+    if cfg.pe_bootcal > 0:
+        samples = pp.bootstrap_calibrate(samples, synth, cnn, gen, n_sig)
+    if cfg.pe_mlrc > 0:
+        samples = pp.ml_recenter(samples, synth, measured, gen)
+    resampled = cfg.reweight_temper > 0
+    if resampled:
+        if report:
+            ess = pp.effective_sample_size(samples, synth, measured, n_sig, cfg.reweight_temper)
+        samples = pp.likelihood_resample(samples, synth, measured, n_sig, gen,
+                                         temper=cfg.reweight_temper)
+        if report:
+            print(f"likelihood resample ESS: {ess:.1f}/{len(samples)}")
+    return samples, None, None, resampled
+
+
+def _library_select(snap_dir: str, gan_iters: int, synth, measured, n_sig: float, gen, final,
+                    bounds):
+    """``select_final_cloud`` over the clouds saved in ``snap_dir`` at steps
+    ≤ ``gan_iters`` (not a previous run's final, at + 1) and the ``final``
+    cloud, in the search window ``bounds``; prints the choice."""
+    lib = {st: load_posterior_snapshot(path) for st, path in list_posterior_snapshots(snap_dir)
+           if st <= gan_iters}
+    name, chosen, info = pp.select_final_cloud(lib, synth, measured, n_sig, gen,
+                                               extra={"final": np.asarray(final)}, bounds=bounds)
+    if info:
+        print(f"library-selected posterior: {name} (scores {{"
+              + ", ".join(f"{k}: {v:.1f}" for k, v in info["scores"].items())
+              + f"}}, plateau K={len(info.get('plateau_members', []))}, "
+              f"pool ESS {info.get('pool_ess', 0.0):.0f})")
+    return name, chosen, info
 
 
 def run_bbh(cfg: BBHConfig, *, device, mesh: DataMesh | None = None):
@@ -410,9 +522,7 @@ def run_bbh(cfg: BBHConfig, *, device, mesh: DataMesh | None = None):
         ref_samples = gp.sample_grid_posterior(Lg, gmc, gq, 3907, seed=cfg.seed)
 
     # ---- CNN PE ---------------------------------------------------------
-    pe_cfg = CNNConfig(n_pix=cfg.n_pix, batch_size=cfg.pe_batch_size, lr=cfg.lr,
-                       noise_frac=cfg.cnn_noise_frac, ema_decay=cfg.pe_ema_decay,
-                       lr_decay_steps=cfg.pe_iters if cfg.pe_lr_decay else 0)
+    pe_cfg = bbh_pe_config(cfg)
     pe_use_ema = cfg.pe_ema_decay > 0
     pe_model = CombinedPE(n_pix=cfg.n_pix) if cfg.comb_pe_model else DualBranchPE(n_pix=cfg.n_pix)
     pe_state = init_cnn(torch.Generator().manual_seed(cfg.seed + 1), pe_model, pe_cfg, device)
@@ -454,15 +564,11 @@ def run_bbh(cfg: BBHConfig, *, device, mesh: DataMesh | None = None):
                            else (mesh.shard_rows(bank), mesh.shard_rows(targets)))
     # the reference's chunk rule (ref :1329-1332): pe_cadence iterations
     # per call where the schedule, the checkpoints and the start allow
-    pe_chunk = cfg.pe_cadence if (cfg.pe_cadence > 1 and cfg.pe_iters % cfg.pe_cadence == 0
-                                  and cfg.ckpt_every % cfg.pe_cadence == 0
-                                  and start % cfg.pe_cadence == 0) else 1
-    pe_step = (make_cnn_step_scan(pe_model, pe_cfg, pe_chunk, mesh=mesh) if pe_chunk > 1
-               else functools.partial(cnn_step, cfg=pe_cfg, mesh=mesh))
+    pe_chunk = _chunk_size(cfg.pe_cadence, cfg.pe_iters, cfg.ckpt_every, start)
+    pe_step = _chunk_step(make_cnn_step, make_cnn_step_scan, pe_chunk, pe_model, pe_cfg,
+                          mesh=mesh)
     for i0 in range(start, cfg.pe_iters, pe_chunk):
         pe_state, m = pe_step(pe_state, pe_bank, pe_targets, pe_gen)
-        if pe_chunk > 1:
-            m = {k: v[-1] for k, v in m.items()}
         i = i0 + pe_chunk  # completed updates
         if main and i % cfg.pe_cadence == 0:
             m = fetch_metrics(m)
@@ -537,12 +643,8 @@ def run_bbh(cfg: BBHConfig, *, device, mesh: DataMesh | None = None):
     start = gan_state.step
     # the reference's chunk rule (ref :1419-1423): cadence iterations per
     # call where the schedule, the evals, the checkpoints and the start allow
-    chunk = cfg.cadence if (cfg.cadence > 1 and cfg.gan_iters % cfg.cadence == 0
-                            and cfg.eval_cadence % cfg.cadence == 0
-                            and cfg.ckpt_every % cfg.cadence == 0
-                            and start % cfg.cadence == 0) else 1
-    gan_step_fn = (make_gan_step_scan(G, D, gan_cfg, chunk, mesh=mesh) if chunk > 1
-                   else make_gan_step(G, D, gan_cfg, mesh=mesh))
+    chunk = _chunk_size(cfg.cadence, cfg.gan_iters, cfg.eval_cadence, cfg.ckpt_every, start)
+    gan_step_fn = _chunk_step(make_gan_step, make_gan_step_scan, chunk, G, D, gan_cfg, mesh=mesh)
 
     def gan_save(step, payload=None, gen_state=None):
         gan_ckpt.save(step, gan_state if payload is None else payload,
@@ -555,14 +657,8 @@ def run_bbh(cfg: BBHConfig, *, device, mesh: DataMesh | None = None):
     else:
         G_samp, samp_dropout = G, cfg.posterior_dropout
     snapshots = deque(maxlen=max(1, cfg.n_snapshots))
-
-    def synth(sm):
-        # clip to where the PhenomD fits are sane (the hunt_constrain prior is
-        # mc 20-35, q >= 0.5; ML refinement's Adam can wander to the corners)
-        sm = torch.as_tensor(sm, dtype=torch.float32, device=device)
-        m1s, m2s = priors.mc_q_to_m1m2(torch.clamp(sm[:, 0], 5.0, 60.0),
-                                       torch.clamp(sm[:, 1], 0.2, 1.0))
-        return tb.make_templates_from_params(m1s, m2s, psd, bank_cfg, norm)
+    synth = bbh_synth(psd, bank_cfg, norm, device, clip=True)
+    snap_dir = os.path.join(cfg.out_dir, "GAN_posterior_samples")
 
     def cnn(w):
         return cnn_predict(pe_state, w, use_ema=pe_use_ema)
@@ -577,29 +673,10 @@ def run_bbh(cfg: BBHConfig, *, device, mesh: DataMesh | None = None):
             # parametric bootstrap through the noise-augmented CNN
             wf_in = wf + cfg.posterior_noise * n_sig_eff * torch.randn(
                 wf.shape, generator=gen, device=gen.device)
-        samples = cnn(wf_in).cpu().numpy()
-        samples_raw = samples
-        route_elbo = None  # select_route's score for the returned cloud
-        if cfg.select_route == "elbo":
-            route, samples, scores = pp.select_route(
-                samples, synth, cnn, measured, n_sig_eff, gen,
-                temper=cfg.reweight_temper if cfg.reweight_temper > 0 else 1.0)
-            route_elbo = scores[route]
-            print(f"auto route: {route} (ELBO {route_elbo:.1f})")
-        else:
-            if cfg.pe_debias > 0:
-                samples = pp.self_calibrate(samples, synth, cnn, gen, n_sig_eff,
-                                            rounds=cfg.pe_debias)
-            if cfg.pe_bootcal > 0:
-                samples = pp.bootstrap_calibrate(samples, synth, cnn, gen, n_sig_eff)
-            if cfg.pe_mlrc > 0:
-                samples = pp.ml_recenter(samples, synth, measured, gen)
-            if cfg.reweight_temper > 0:
-                ess = pp.effective_sample_size(samples, synth, measured, n_sig_eff,
-                                               cfg.reweight_temper)
-                samples = pp.likelihood_resample(samples, synth, measured, n_sig_eff, gen,
-                                                 temper=cfg.reweight_temper)
-                print(f"likelihood resample ESS: {ess:.1f}/{len(samples)}")
+        samples_raw = cnn(wf_in).cpu().numpy()
+        # route_elbo: select_route's score for the returned cloud
+        samples, _, route_elbo, _ = apply_routes(samples_raw, synth, cnn, measured, n_sig_eff,
+                                                 gen, cfg)
         return wf, samples, samples_raw, route_elbo
 
     def eval_posterior(states, step, tag=None, cloud_override=None):
@@ -621,12 +698,10 @@ def run_bbh(cfg: BBHConfig, *, device, mesh: DataMesh | None = None):
                 if grid is not None:
                     raw_row["grid_overlap_raw"] = gp.grid_overlap_score(samples_raw, *grid)
                 log.log(step, raw_row)
-        save_posterior_snapshot(os.path.join(cfg.out_dir, "GAN_posterior_samples"),
-                                step + 1 if tag == "final" else step, samples)
+        save_posterior_snapshot(snap_dir, step + 1 if tag == "final" else step, samples)
         # whiteness of the posterior-MEAN waveform's residual
         ws = posterior_whiteness(measured.cpu().numpy(), wf[:256].cpu().numpy(), n_sig_eff)
-        w_score = (ws["mean_pass"] + ws["var_pass"] + ws["ljung_box_pass"]) / 3.0
-        out = {"whiteness": w_score, "ws": ws, "wf": wf, "samples": samples,
+        out = {"whiteness": _whiteness_score(ws), "ws": ws, "wf": wf, "samples": samples,
                "beta": None, "grid_overlap": None, **raw_row}
         if grid is not None:
             gm = gp.grid_moments(*grid)
@@ -687,8 +762,6 @@ def run_bbh(cfg: BBHConfig, *, device, mesh: DataMesh | None = None):
         # the knobs of a chunk are those of its first step (ref :1628)
         knobs = anneal_knobs if (cfg.anneal_frac > 0 and i0 >= anneal_start) else base_knobs
         gan_state, m = gan_step_fn(gan_state, gan_bank, measured, gen, knobs)
-        if chunk > 1:
-            m = {k: v[-1] for k, v in m.items()}
         if main and i % cfg.cadence == 0:
             flush()
             pending = (i, m)
@@ -750,31 +823,14 @@ def run_bbh(cfg: BBHConfig, *, device, mesh: DataMesh | None = None):
     beta_raw_final = grid_overlap_raw_final = None
     sel_route_name, sel_info = None, None
     if main and cfg.gan_iters > start:
-        final_states = [gan_state]
-        if cfg.n_snapshots > 1:
-            # the pooled snapshots, plus the final state unless the last eval took it
-            final_states = list(snapshots) + (
-                [] if snapshots and snapshots[-1].step == gan_state.step else [gan_state])
+        final_states = _final_states(snapshots, gan_state, cfg.n_snapshots)
         cloud_override = None
         if cfg.select_best == "elbo":
             # candidate-library selection over the saved per-eval clouds and
             # the trained-final cloud (ref :1697-1733), truth-free
             _, samples_f, _, _ = draw_posterior(final_states)
-            lib = {}
-            for path in glob.glob(os.path.join(cfg.out_dir, "GAN_posterior_samples",
-                                               "posterior_samples_*.npz")):
-                st = int(path.rsplit("_", 1)[1].split(".")[0])
-                if st <= cfg.gan_iters:  # skip a previous run's final (+1)
-                    lib[st] = np.load(path)["samples"]
-            sel_route_name, chosen, sel_info = pp.select_final_cloud(
-                lib, synth, measured, n_sig_eff, gen, extra={"final": np.asarray(samples_f)},
-                # search-window prior: the exact grid's parameter box
-                bounds=((20.0, 35.0), (0.5, 1.0)))
-            if sel_info:
-                print(f"library-selected posterior: {sel_route_name} (scores {{"
-                      + ", ".join(f"{k}: {v:.1f}" for k, v in sel_info["scores"].items())
-                      + f"}}, plateau K={len(sel_info.get('plateau_members', []))}, "
-                      f"pool ESS {sel_info.get('pool_ess', 0.0):.0f})")
+            sel_route_name, chosen, sel_info = _library_select(
+                snap_dir, cfg.gan_iters, synth, measured, n_sig_eff, gen, samples_f, BBH_BOUNDS)
             if chosen is not None:
                 cloud_override = np.asarray(chosen)
         ev = eval_posterior(final_states, cfg.gan_iters, tag="final",
@@ -885,36 +941,17 @@ def sample_posterior(cfg: BBHConfig, *, n_samples: int, out: str, device):
         measured, norm, psd = _prepare_bbh_data(
             cfg, torch.Generator(device=device).manual_seed(cfg.seed), device,
             skip_bank=True)[3:6]
-        bank_cfg = tb.BankConfig()
-
-        def synth(sm):
-            sm = torch.as_tensor(sm, dtype=torch.float32, device=device)
-            m1s, m2s = priors.mc_q_to_m1m2(torch.clamp(sm[:, 0], 5.0, 60.0),
-                                           torch.clamp(sm[:, 1], 0.2, 1.0))
-            return tb.make_templates_from_params(m1s, m2s, psd, bank_cfg, norm)
+        # n_pix is 1024 here (check_sample_posterior), the reference's tb.BankConfig()
+        synth = bbh_synth(psd, _bbh_bank_cfg(cfg), norm, device, clip=True)
 
         def cnn(w):
             return cnn_predict(pe_state, w, use_ema=use_ema)
 
         rgen = torch.Generator(device=device).manual_seed(cfg.seed + 7)
-        if cfg.select_route == "elbo":
-            route, samples, _ = pp.select_route(
-                samples, synth, cnn, measured, cfg.n_sig, rgen,
-                temper=cfg.reweight_temper if cfg.reweight_temper > 0 else 1.0)
+        samples, route, _, resampled = apply_routes(samples, synth, cnn, measured, cfg.n_sig,
+                                                    rgen, cfg, report=False)
+        if route is not None:
             extra["route"] = route
-            resampled = route.endswith("reweight")
-        else:
-            if cfg.pe_debias > 0:
-                samples = pp.self_calibrate(samples, synth, cnn, rgen, cfg.n_sig,
-                                            rounds=cfg.pe_debias)
-            if cfg.pe_bootcal > 0:
-                samples = pp.bootstrap_calibrate(samples, synth, cnn, rgen, cfg.n_sig)
-            if cfg.pe_mlrc > 0:
-                samples = pp.ml_recenter(samples, synth, measured, rgen)
-            if cfg.reweight_temper > 0:
-                samples = pp.likelihood_resample(samples, synth, measured, cfg.n_sig, rgen,
-                                                 temper=cfg.reweight_temper)
-                resampled = True
     # resampling reorders and repeats rows, so samples[i] no longer pairs
     # with wf[i]: the draws then go under another key
     wf_key = "waveforms_unpaired" if resampled else "waveforms"
@@ -1005,6 +1042,17 @@ _BURST_BOUNDS = ((0.25, 0.75), (1.0 / 60.0, 1.0 / 15.0))
 _BURST_TRUTH = (0.5, 1.0 / 25.0)
 
 
+def burst_synth(n_pix: int, device):
+    """The burst forward model: sine-Gaussians of (t0, τ) rows on
+    ``device``."""
+
+    def synth(s):
+        s = torch.as_tensor(s, dtype=torch.float32, device=device)
+        return sine_gaussian(s[:, 0], s[:, 1], N=n_pix)
+
+    return synth
+
+
 def burst_event(cfg: BurstSmokeConfig, gen: torch.Generator, device):
     """The training bank and the fixed event at (t0, τ) = truth, drawn from
     ``gen`` in this order (ref: :581,614-631): (bank, pars, signal,
@@ -1049,10 +1097,7 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device, mesh: DataMesh | None = No
     if main:
         L, gx, gy = gp.burst_grid_posterior(measured, cfg.n_sig, cfg.pe_grain)
     measured_np, signal_np = measured.cpu().numpy(), signal.cpu().numpy()
-
-    def synth(s):
-        s = torch.as_tensor(s, dtype=torch.float32, device=device)
-        return sine_gaussian(s[:, 0], s[:, 1], N=cfg.n_pix)
+    synth = burst_synth(cfg.n_pix, device)
 
     # ---- CNN PE (ref: :732-771) ------------------------------------------
     pe_cfg = CNNConfig(n_pix=cfg.n_pix, batch_size=cfg.batch_size, lr=cfg.lr,
@@ -1072,13 +1117,11 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device, mesh: DataMesh | None = No
     else:
         pe_gen = _pe_generator(cfg.seed, device, mesh)
         # the reference's chunk rule (ref :309): cadence iterations per call
-        pe_chunk = cfg.cadence if (cfg.cadence > 1 and cfg.pe_iters % cfg.cadence == 0) else 1
-        pe_step = (make_cnn_step_scan(pe_model, pe_cfg, pe_chunk, mesh=mesh) if pe_chunk > 1
-                   else functools.partial(cnn_step, cfg=pe_cfg, mesh=mesh))
+        pe_chunk = _chunk_size(cfg.cadence, cfg.pe_iters)
+        pe_step = _chunk_step(make_cnn_step, make_cnn_step_scan, pe_chunk, pe_model, pe_cfg,
+                              mesh=mesh)
         for i0 in range(0, cfg.pe_iters, pe_chunk):
             pe_state, m = pe_step(pe_state, train_bank, train_pars, pe_gen)
-            if pe_chunk > 1:
-                m = {k: v[-1] for k, v in m.items()}
             i = i0 + pe_chunk  # completed updates
             if main and i % cfg.cadence == 0:
                 m = fetch_metrics(m)
@@ -1129,36 +1172,16 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device, mesh: DataMesh | None = No
             # parametric bootstrap: fresh measurement-scale noise on each draw
             wf_in = wf + cfg.posterior_noise * cfg.n_sig * torch.randn(
                 wf.shape, generator=gen, device=gen.device)
-        samples = cnn(wf_in).cpu().numpy()
-        route_elbo = None  # select_route's score for the returned cloud
-        if cfg.select_route == "elbo":
-            route, samples, scores = pp.select_route(
-                samples, synth, cnn, measured, cfg.n_sig, gen,
-                temper=cfg.reweight_temper if cfg.reweight_temper > 0 else 1.0)
-            route_elbo = scores[route]
-            print(f"auto route: {route} (ELBO {route_elbo:.1f})")
-        else:
-            if cfg.pe_debias > 0:
-                samples = pp.self_calibrate(samples, synth, cnn, gen, cfg.n_sig,
-                                            rounds=cfg.pe_debias)
-            if cfg.pe_bootcal > 0:
-                samples = pp.bootstrap_calibrate(samples, synth, cnn, gen, cfg.n_sig)
-            if cfg.pe_mlrc > 0:
-                samples = pp.ml_recenter(samples, synth, measured, gen)
-            if cfg.reweight_temper > 0:
-                ess = pp.effective_sample_size(samples, synth, measured, cfg.n_sig,
-                                               cfg.reweight_temper)
-                samples = pp.likelihood_resample(samples, synth, measured, cfg.n_sig, gen,
-                                                 temper=cfg.reweight_temper)
-                print(f"likelihood resample ESS: {ess:.1f}/{len(samples)}")
+        # route_elbo: select_route's score for the returned cloud
+        samples, _, route_elbo, _ = apply_routes(cnn(wf_in).cpu().numpy(), synth, cnn, measured,
+                                                 cfg.n_sig, gen, cfg)
         return wf, samples, route_elbo
 
     base_knobs, anneal_knobs, anneal_start = _anneal_knobs(gan_cfg, cfg)
     # the reference's chunk rule (ref :350): cadence iterations per call; a
     # restart's fresh modules are captured again
-    chunk = cfg.cadence if (cfg.cadence > 1 and cfg.gan_iters % cfg.cadence == 0) else 1
-    gan_step_fn = (make_gan_step_scan(G, D, gan_cfg, chunk, mesh=mesh) if chunk > 1
-                   else make_gan_step(G, D, gan_cfg, mesh=mesh))
+    chunk = _chunk_size(cfg.cadence, cfg.gan_iters)
+    gan_step_fn = _chunk_step(make_gan_step, make_gan_step_scan, chunk, G, D, gan_cfg, mesh=mesh)
     gm = gp.grid_moments(L, gx, gy) if main else None
     best_score = -1.0
     sel_score, sel_step = float("-inf"), None
@@ -1178,7 +1201,7 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device, mesh: DataMesh | None = No
                 print(f"schedule ended unconverged — random restart {attempt}")
                 snapshots.clear()
                 # the on-disk cloud history stays a single trajectory
-                for path in glob.glob(os.path.join(snap_dir, "posterior_samples_*.npz")):
+                for _, path in list_posterior_snapshots(snap_dir):
                     os.remove(path)
         n_cad = 0
         for i0 in range(0, cfg.gan_iters, chunk):
@@ -1186,8 +1209,6 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device, mesh: DataMesh | None = No
             # the knobs of a chunk are those of its first step (ref :471)
             knobs = anneal_knobs if (cfg.anneal_frac > 0 and i0 >= anneal_start) else base_knobs
             gan_state, m = gan_step_fn(gan_state, train_bank, measured, gen, knobs)
-            if chunk > 1:
-                m = {k: v[-1] for k, v in m.items()}
             if i % cfg.cadence != 0:
                 continue
             n_cad += 1
@@ -1235,8 +1256,8 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device, mesh: DataMesh | None = No
                 if cfg.freeze_on_white > 0:
                     # the posterior-mean waveform's residual (eval/whiteness)
                     # AND a converged raw residual loss
-                    ws = posterior_whiteness(measured_np / cfg.n_sig, wf_np[:256] / cfg.n_sig, 1.0)
-                    w = (ws["mean_pass"] + ws["var_pass"] + ws["ljung_box_pass"]) / 3.0
+                    w = _whiteness_score(posterior_whiteness(measured_np / cfg.n_sig,
+                                                             wf_np[:256] / cfg.n_sig, 1.0))
                     diag["whiteness"] = w
                     res_raw = mh["res_loss"] / max(cfg.res_loss_weight, 1e-30)
                     res_ok = cfg.freeze_on_res <= 0 or 0.0 < res_raw < cfg.freeze_on_res
@@ -1262,30 +1283,15 @@ def run_burst_smoke(cfg: BurstSmokeConfig, *, device, mesh: DataMesh | None = No
         log.close()
         return None
     if cfg.gan_iters > 0:
-        final_states = [gan_state]
-        if cfg.n_snapshots > 1 and snapshots:
-            final_states = list(snapshots) + (
-                [] if snapshots[-1].step == gan_state.step else [gan_state])
-        wf, samples, _ = draw_posterior(final_states)
+        wf, samples, _ = draw_posterior(_final_states(snapshots, gan_state, cfg.n_snapshots))
         if cfg.select_best == "elbo":
             # candidate-library selection over the saved per-eval clouds and
             # the trained-final cloud (posterior_post.select_final_cloud)
-            clouds = {}
-            for path in glob.glob(os.path.join(snap_dir, "posterior_samples_*.npz")):
-                st = int(path.rsplit("_", 1)[1].split(".")[0])
-                if st <= cfg.gan_iters:  # skip a previous run's final (+1)
-                    clouds[st] = np.load(path)["samples"]
-            sel_route_name, chosen, sel_info = pp.select_final_cloud(
-                clouds, synth, measured, cfg.n_sig, gen, extra={"final": np.asarray(samples)},
-                bounds=_BURST_BOUNDS)
+            sel_route_name, chosen, sel_info = _library_select(
+                snap_dir, cfg.gan_iters, synth, measured, cfg.n_sig, gen, samples, _BURST_BOUNDS)
             if chosen is not None and sel_route_name != "final":
                 samples = np.asarray(chosen)
                 wf = synth(samples[:256])
-            if sel_info:
-                print(f"library-selected posterior: {sel_route_name} (scores {{"
-                      + ", ".join(f"{k}: {v:.1f}" for k, v in sel_info["scores"].items())
-                      + f"}}, plateau K={len(sel_info.get('plateau_members', []))}, "
-                      f"pool ESS {sel_info.get('pool_ess', 0.0):.0f})")
         save_posterior_snapshot(snap_dir, cfg.gan_iters + 1, samples)  # +1: the final cloud
         if samples[:, 0].var() > 0 and samples[:, 1].var() > 0:
             final_score = gp.grid_overlap_score(samples, L, gx, gy)

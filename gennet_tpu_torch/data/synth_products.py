@@ -78,8 +78,8 @@ def event_fd_physical(cfg: tb.BankConfig = tb.BankConfig(), peak_frac: float = 0
 def write_synthetic_products(directory: str, seed: int = 0,
                              cfg: tb.BankConfig = tb.BankConfig(), n_posterior: int = 4000,
                              grid_grain: int = 64, event_time: str = "1126259462",
-                             noise_sigma: float = 1.0, mc_range=(20.0, 35.0),
-                             q_range=(0.5, 1.0), posterior: bool = True, device="cuda"):
+                             noise_sigma: float = 1.0, mc_range=gp.BBH_MC_RANGE,
+                             q_range=gp.BBH_Q_RANGE, posterior: bool = True, device="cuda"):
     """Write a synthetic lalinference product directory.
 
     ``posterior=False`` writes the three ASCII files only: no likelihood

@@ -42,9 +42,13 @@ def burst_grid_posterior(measured, n_sig: float = 0.25, grain: int = 95,
     return np.exp(logL - np.max(logL)), t0, tau
 
 
+# the exact BBH grid's (mc, q) box
+BBH_MC_RANGE, BBH_Q_RANGE = (20.0, 35.0), (0.5, 1.0)
+
+
 def bbh_grid_posterior(measured: torch.Tensor, psd: torch.Tensor, bank_cfg,
                        norm_constant: float, noise_sigma: float, grain: int = 95,
-                       mc_range=(20.0, 35.0), q_range=(0.5, 1.0), chunk: int = 4096):
+                       mc_range=BBH_MC_RANGE, q_range=BBH_Q_RANGE, chunk: int = 4096):
     """Likelihood L over a (grain × grain) (mc, q) grid, normalised to max 1.
 
     Returns (L (grain, grain) float64 numpy with axes (q, mc), mc grid, q grid).

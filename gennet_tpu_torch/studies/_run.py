@@ -10,7 +10,6 @@ different streams), or one whose event it does not draw again.
 """
 
 import argparse
-import glob
 import json
 import os
 
@@ -19,13 +18,13 @@ import torch
 
 from gennet_tpu_torch import runtime
 from gennet_tpu_torch.cli.workloads import (EVENT_RECORD, BBHConfig, BurstSmokeConfig,
-                                            _prepare_bbh_data, bbh_cnn_cache_tag, burst_event)
+                                            _prepare_bbh_data, bbh_cnn_cache_tag, bbh_pe_config,
+                                            burst_event, burst_synth)
 from gennet_tpu_torch.data import template_bank as tb
 from gennet_tpu_torch.eval import grid_posterior as gp
 from gennet_tpu_torch.eval import overlap as ov
-from gennet_tpu_torch.physics import priors
-from gennet_tpu_torch.physics.burst import sine_gaussian
-from gennet_tpu_torch.train.checkpoints import CheckpointManager
+from gennet_tpu_torch.train.checkpoints import (CheckpointManager, list_posterior_snapshots,
+                                                load_posterior_snapshot)
 from gennet_tpu_torch.train.cnn import CNNConfig, init_cnn
 from gennet_tpu_torch.train.gan import init_gan
 
@@ -34,9 +33,6 @@ from gennet_tpu_torch.train.gan import init_gan
 # directory
 BBH_OUT = "out/torch/bbh_sweeps"
 BURST_OUT = "out/torch/sweeps"
-
-# the grid's (mc, q) box: the library selection's search-window prior
-BBH_BOUNDS = ((20.0, 35.0), (0.5, 1.0))
 
 
 def parse(argv, doc: str, *specs) -> argparse.Namespace:
@@ -74,12 +70,11 @@ def require_bank_geometry(cfg: BBHConfig, study: str):
 
 def snapshot_paths(run_dir: str) -> list:
     """(step, path) of the run's saved clouds, by step."""
-    paths = glob.glob(os.path.join(run_dir, "GAN_posterior_samples", "posterior_samples_*.npz"))
-    return sorted(((int(p.rsplit("_", 1)[1].split(".")[0]), p) for p in paths))
+    return sorted(list_posterior_snapshots(os.path.join(run_dir, "GAN_posterior_samples")))
 
 
 def load_cloud(path: str) -> np.ndarray:
-    return np.load(path)["samples"].astype(np.float64)
+    return load_posterior_snapshot(path).astype(np.float64)
 
 
 def check_event(run_dir: str, measured: torch.Tensor):
@@ -120,33 +115,11 @@ def bbh_grid(cfg: BBHConfig, measured, signal, psd, norm, bank_cfg):
     return (np.asarray(Lg), gmc, gq), gp.sample_grid_posterior(Lg, gmc, gq, 3907, seed=cfg.seed)
 
 
-def bbh_synth(psd, bank_cfg, norm, device, clip: bool):
-    """Templates of (mc, q) rows on ``device``; ``clip`` bounds (mc, q) to
-    where the PhenomD fits are sane, as ``run_bbh``'s synthesis does."""
-
-    def synth(sm):
-        sm = torch.as_tensor(sm, dtype=torch.float32, device=device)
-        mc, q = sm[:, 0], sm[:, 1]
-        if clip:
-            mc, q = torch.clamp(mc, 5.0, 60.0), torch.clamp(q, 0.2, 1.0)
-        m1s, m2s = priors.mc_q_to_m1m2(mc, q)
-        return tb.make_templates_from_params(m1s, m2s, psd, bank_cfg, norm)
-
-    return synth
-
-
 def score(s: np.ndarray, ref_samples, grid) -> tuple:
     """(β overlap against ``ref_samples``, 0 for a collapsed mc column;
     grid overlap)."""
     return (ov.beta_overlap(s, ref_samples) if s[:, 0].var() > 0 else 0.0,
             gp.grid_overlap_score(s, *grid))
-
-
-def pe_config(cfg: BBHConfig) -> CNNConfig:
-    """The run's PE config, as ``run_bbh`` builds it."""
-    return CNNConfig(n_pix=cfg.n_pix, batch_size=cfg.pe_batch_size, lr=cfg.lr,
-                     noise_frac=cfg.cnn_noise_frac, ema_decay=cfg.pe_ema_decay,
-                     lr_decay_steps=cfg.pe_iters if cfg.pe_lr_decay else 0)
 
 
 def restore_pe(directory: str, model, pe_cfg: CNNConfig, seed: int, device, what: str):
@@ -165,8 +138,8 @@ def cached_pe(cfg: BBHConfig, model, device):
     if not cfg.cnn_cache:
         raise FileNotFoundError(f"{cfg.out_dir} has no cnn_cache: the study reads the PE from "
                                 "the run's CNN cache entry, as its JAX script does")
-    return restore_pe(os.path.join(cfg.cnn_cache, bbh_cnn_cache_tag(cfg)), model, pe_config(cfg),
-                      cfg.seed, device, "cached CNN")
+    return restore_pe(os.path.join(cfg.cnn_cache, bbh_cnn_cache_tag(cfg)), model,
+                      bbh_pe_config(cfg), cfg.seed, device, "cached CNN")
 
 
 def restore_gan(run_dir: str, G, D, gan_cfg, seed: int, device, at_most=None) -> tuple:
@@ -203,16 +176,9 @@ def burst_reference(cfg: BurstSmokeConfig, device):
     measured = burst_measured(cfg, device)
     check_event(cfg.out_dir, measured)
     L, gx, gy = gp.burst_grid_posterior(measured, cfg.n_sig, cfg.pe_grain)
-
-    def synth(s):
-        s = torch.as_tensor(s, dtype=torch.float32, device=device)
-        return sine_gaussian(s[:, 0], s[:, 1], N=cfg.n_pix)
-
-    return measured, (np.asarray(L), gx, gy), synth
+    return measured, (np.asarray(L), gx, gy), burst_synth(cfg.n_pix, device)
 
 
 def burst_clouds(run_dir: str) -> dict:
     """The run's saved clouds by step, in the order of their file names."""
-    paths = sorted(glob.glob(os.path.join(run_dir, "GAN_posterior_samples",
-                                          "posterior_samples_*.npz")))
-    return {int(p.rsplit("_", 1)[1].split(".")[0]): load_cloud(p) for p in paths}
+    return {st: load_cloud(p) for st, p in sorted(snapshot_paths(run_dir), key=lambda sp: sp[1])}

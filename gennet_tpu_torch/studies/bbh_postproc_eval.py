@@ -30,7 +30,7 @@ import sys
 import numpy as np
 import torch
 
-from gennet_tpu_torch.cli.workloads import effective_n_sig
+from gennet_tpu_torch.cli import workloads
 from gennet_tpu_torch.data import template_bank as tb
 from gennet_tpu_torch.eval import posterior_post as pp
 from gennet_tpu_torch.models import CombinedPE, DualBranchPE
@@ -91,7 +91,7 @@ def library_rows(run: str, lib: dict, synth, measured, n_sig: float, gen, ref_sa
     (mc, q) box, and one row per candidate (:176-207), or none when nothing
     was chosen. ``draws``: ``select_final_cloud``'s."""
     sel_name, chosen, info = pp.select_final_cloud(lib, synth, measured, n_sig, gen,
-                                                   bounds=_run.BBH_BOUNDS, draws=draws)
+                                                   bounds=workloads.BBH_BOUNDS, draws=draws)
     rows = []
     if chosen is None:
         return rows
@@ -139,13 +139,13 @@ def study(run_dir: str, device, library_only: bool = False, ctx_cache: dict | No
         print(f"SKIP {run_dir}: no saved clouds")
         return []
     cloud = _run.load_cloud(paths[-1][1])
-    synth = _run.bbh_synth(psd, bank_cfg, norm, device, clip=False)
+    synth = workloads.bbh_synth(psd, bank_cfg, norm, device, clip=False)
 
     def cnn(w):
         return cnn_predict(pe_state, w, use_ema=pe_use_ema)
 
     gen = torch.Generator(device=device).manual_seed(cfg.seed + 77)
-    n_sig = effective_n_sig(cfg, norm)
+    n_sig = workloads.effective_n_sig(cfg, norm)
     run = os.path.basename(run_dir.rstrip("/"))
     rows = []
     if not library_only:

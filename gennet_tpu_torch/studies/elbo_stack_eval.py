@@ -27,7 +27,7 @@ import sys
 import numpy as np
 import torch
 
-from gennet_tpu_torch.cli.workloads import _bbh_bank_cfg, effective_n_sig
+from gennet_tpu_torch.cli.workloads import _bbh_bank_cfg, bbh_synth, effective_n_sig
 from gennet_tpu_torch.eval import posterior_post as pp
 from gennet_tpu_torch.recipes import append_row
 from gennet_tpu_torch.studies import _run
@@ -87,7 +87,7 @@ def study(run_dir: str, ks, device) -> tuple:
     bank_cfg = _bbh_bank_cfg(cfg)
     grid, grid_samples = _run.bbh_grid(cfg, measured, signal, psd, norm, bank_cfg)
     ref_samples = lalinf_samples if lalinf_samples is not None else grid_samples
-    synth = _run.bbh_synth(psd, bank_cfg, norm, device, clip=True)
+    synth = bbh_synth(psd, bank_cfg, norm, device, clip=True)
     rows, best = stack_rows(os.path.basename(run_dir.rstrip("/")), clouds, elbo_by_step, ks,
                             synth, measured, effective_n_sig(cfg, norm), ref_samples, grid,
                             cfg.seed)

@@ -23,6 +23,7 @@ restore at another world size is refused, unless the caller asks for the
 state alone (the CNN cache, which the reference shares across mesh sizes).
 """
 
+import glob
 import os
 from dataclasses import fields, is_dataclass
 
@@ -178,6 +179,13 @@ def save_posterior_snapshot(directory: str, step: int, samples: np.ndarray):
     path = os.path.join(directory, f"posterior_samples_{step:05d}.npz")
     np.savez_compressed(path, samples=np.asarray(samples))
     return path
+
+
+def list_posterior_snapshots(directory: str) -> list:
+    """(step, path) of the snapshots :func:`save_posterior_snapshot` wrote
+    in ``directory``, in ``glob``'s order."""
+    return [(int(p.rsplit("_", 1)[1].split(".")[0]), p)
+            for p in glob.glob(os.path.join(directory, "posterior_samples_*.npz"))]
 
 
 def load_posterior_snapshot(path: str) -> np.ndarray:

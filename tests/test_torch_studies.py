@@ -264,7 +264,7 @@ def test_postproc_library_rows_match(small_library, monkeypatch):
             row["tiebreak"] = {k: round(v, 4) if isinstance(v, float) else v
                                for k, v in info["tiebreak"].items()}
         ref_rows.append(row)
-    monkeypatch.setattr(bbh_postproc_eval._run, "BBH_BOUNDS", BURST_BOUNDS)
+    monkeypatch.setattr(workloads, "BBH_BOUNDS", BURST_BOUNDS)
     rows = bbh_postproc_eval.library_rows(
         "r", lib, t_synth, measured, N_SIG, None, tgp.sample_grid_posterior(*tgrid, N_REF, seed=1),
         tgrid, draws=_select_draws(ksel, 900, N_OUT))

@@ -230,7 +230,7 @@ def test_unported_options_raise(tmp_path, monkeypatch, field, value):
         def no_training(*a, **k):
             raise AssertionError("PE training began")
 
-        monkeypatch.setattr(twl, "cnn_step", no_training)
+        monkeypatch.setattr(tcnn, "cnn_step", no_training)  # what every PE step function runs
         with pytest.raises(ValueError, match="4000 bank rows without replacement"):
             twl.run_bbh(dataclasses.replace(cfg, **{field: value}), device="cpu")
 
