@@ -34,6 +34,13 @@ Phases, in order; any failure raises, so the exit code is non-zero:
    ``F.conv1d``'s, an eager backward bitwise equal to a captured replay;
    exactly 5 launches a ``DualBranchPE`` iteration and 1 a ``BurstPE``
    one, read at the chunk's capture;
+5c. stride-2 dw kernel (``ops/conv1d_dw.py``, :func:`conv_dw_check`): at
+   each stride-2 layer of the benchmark's cells (the narrow-input ones,
+   Cin 1 and 2, included), the kernel against its plain version
+   (≤ 1e-4·max), against float64 within twice cuDNN's FP32 wgrad's error
+   on the same inputs, two calls bitwise equal, CUDA-event times beside
+   cuDNN's wgrad; exactly 6 launches a ``DualBranchPE`` iteration and 2 a
+   ``BurstPE`` one, read at the chunk's capture;
 6. slice 1: ``train-bbh`` through the CLI at n_pix 1024 with the full-width
    G, D and PE, 20 PE and 20 GAN steps, default recipe, with the phasor
    kernel's launch count read around the run;
@@ -349,6 +356,54 @@ def dx_cost(B: int, L: int, cin: int, cout: int, K: int = 5) -> tuple:
             4.0 * (B * cout * Ly + cout * cin * K + B * cin * L))
 
 
+def rel_max(a, b) -> float:
+    """max |a − b| ÷ max |b|, in float64."""
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+def s2_input(g, B: int, L_in: int, cin: int, padding: str):
+    """A random input (B, cin, ·) on the card as a width-5 stride-2
+    ``Conv1d`` hands it to ``F.conv1d``: padded by the flax SAME rule, or
+    not (VALID)."""
+    import torch
+    import torch.nn.functional as F
+
+    x = torch.randn((B, cin, L_in), generator=g, device="cuda")
+    if padding == "SAME":
+        total = max((-(-L_in // 2) - 1) * 2 + 5 - L_in, 0)
+        x = F.pad(x, (total // 2, total - total // 2))
+    return x
+
+
+def pe_launches(ops, what: str, expect: dict, g, card) -> dict:
+    """Launches of ``ops``' kernel (a wrapper with a ``LAUNCHES`` count) per
+    PE iteration, read at the chunk's capture, and over a chunk of 5;
+    ``expect`` gives each model's count an iteration."""
+    import torch
+
+    from gennet_tpu_torch import models
+    from gennet_tpu_torch.train import cnn as tcnn
+
+    dev = torch.device("cuda")
+    launches = {}
+    for name, n_pix in (("DualBranchPE", 1024), ("BurstPE", 512)):
+        cfg = tcnn.CNNConfig(n_pix=n_pix, batch_size=64)
+        st = tcnn.init_cnn(torch.Generator().manual_seed(1), getattr(models, name)(n_pix=n_pix),
+                           cfg, dev)
+        bank = torch.randn((4096, n_pix), generator=g, device=dev)
+        targets = torch.rand((4096, 2), generator=g, device=dev)
+        scan = tcnn.make_cnn_step_scan(st.model, cfg, 5)
+        before = ops.LAUNCHES
+        scan(st, bank, targets, torch.Generator(device=dev).manual_seed(2))
+        per, total = scan.graph.launches.get(ops, 0), ops.LAUNCHES - before
+        launches[name] = per
+        print(f"{what} launches: {name} {per} an iteration at the capture, {total} over a "
+              f"chunk of 5 (expected {expect[name]} and {5 * expect[name]}) [{card}]")
+        if per != expect[name] or total != 5 * expect[name]:
+            fail(f"{what}: {name} launched {per} an iteration, {total} a chunk")
+    return launches
+
+
 def conv_dx_check(S, card) -> dict:
     """The stride-2 dx kernel on the card (phase 5b); ``S`` is
     ``gennet_tpu_torch.ops.conv1d_dx``. Returns its rows by layer and its
@@ -356,22 +411,14 @@ def conv_dx_check(S, card) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from gennet_tpu_torch.models import BurstPE, DualBranchPE
     from gennet_tpu_torch.models.layers import Conv1d
-    from gennet_tpu_torch.train import cnn as tcnn
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(19)
 
-    def rel(a, b):
-        return float((a.double() - b.double()).abs().max() / b.double().abs().max())
-
     rows = {}
     for name, B, L_in, cin, cout, padding in DX_LAYERS:
-        x = torch.randn((B, cin, L_in), generator=g, device=dev)
-        if padding == "SAME":  # Conv1d's flax padding at stride 2
-            total = max((-(-L_in // 2) - 1) * 2 + 5 - L_in, 0)
-            x = F.pad(x, (total // 2, total - total // 2))
+        x = s2_input(g, B, L_in, cin, padding)
         L = x.shape[-1]
         w = torch.randn((cout, cin, 5), generator=g, device=dev) / math.sqrt(5 * cin)
         dy = torch.randn((B, cout, (L - 5) // 2 + 1), generator=g, device=dev)
@@ -383,7 +430,7 @@ def conv_dx_check(S, card) -> dict:
 
         n = min(B, 8)  # float64 on the card is slow: the first 8 rows, for both
         r64 = S.conv1d_dx_ref(dy[:n].double(), w.double(), L)
-        err, e_k, e_c = rel(got, plain), rel(got[:n], r64), rel(cudnn()[:n], r64)
+        err, e_k, e_c = rel_max(got, plain), rel_max(got[:n], r64), rel_max(cudnn()[:n], r64)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()) or not err <= CONV_TOL:
             fail(f"conv dx {name}: kernel off its plain version by {err:.3e} of the maximum")
@@ -433,10 +480,11 @@ def conv_dx_check(S, card) -> dict:
         launched = S.LAUNCHES - before
         want = torch.autograd.grad(F.conv1d(x, *params, stride=2), (x, *params), dy)
     torch.cuda.current_stream().wait_stream(side)
-    if launched != 1 or not rel(got[0], want[0]) <= CONV_TOL:
-        fail(f"conv dx layer: {launched} launches, dx off cuDNN's by {rel(got[0], want[0]):.3e}")
-    if not (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])):
-        fail("conv dx layer: dw or db differs from F.conv1d's")
+    if launched != 1 or not rel_max(got[0], want[0]) <= CONV_TOL:
+        fail(f"conv dx layer: {launched} launches, dx off cuDNN's by "
+             f"{rel_max(got[0], want[0]):.3e}")
+    if not (rel_max(got[1], want[1]) <= CONV_TOL and torch.equal(got[2], want[2])):
+        fail("conv dx layer: dw off cuDNN's (the dw kernel's), or db differs from F.conv1d's")
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         replayed = torch.autograd.grad(y, (x, *params), dy, retain_graph=True)
@@ -450,26 +498,77 @@ def conv_dx_check(S, card) -> dict:
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(replayed, got)):
         fail("conv dx layer: a captured replay differs from the eager backward")
-    print(f"conv dx layer q_convs.4 through Conv1d: 1 dx launch; dw and db bitwise F.conv1d's; "
+    print(f"conv dx layer q_convs.4 through Conv1d: 1 dx launch; dw the dw kernel's, db bitwise "
+          f"F.conv1d's; "
           f"an eager backward bitwise equal to a captured replay [{card}]")
     del layer, x, y, dy, got, want, replayed, graph
 
-    # launches per PE iteration, read at the chunk's capture
-    launches = {}
-    for model, n_pix, expect in ((DualBranchPE(n_pix=1024), 1024, 5), (BurstPE(n_pix=512), 512, 1)):
-        cfg = tcnn.CNNConfig(n_pix=n_pix, batch_size=64)
-        st = tcnn.init_cnn(torch.Generator().manual_seed(1), model, cfg, dev)
-        bank = torch.randn((4096, n_pix), generator=g, device=dev)
-        targets = torch.rand((4096, 2), generator=g, device=dev)
-        scan = tcnn.make_cnn_step_scan(st.model, cfg, 5)
-        before = S.LAUNCHES
-        st, _ = scan(st, bank, targets, torch.Generator(device=dev).manual_seed(2))
-        per, total = scan.graph.launches.get(S, 0), S.LAUNCHES - before
-        launches[type(model).__name__] = per
-        print(f"conv dx launches: {type(model).__name__} {per} an iteration at the capture, "
-              f"{total} over a chunk of 5 (expected {expect} and {5 * expect}) [{card}]")
-        if per != expect or total != 5 * expect:
-            fail(f"conv dx: {type(model).__name__} launched {per} an iteration, {total} a chunk")
+    launches = pe_launches(S, "conv dx", {"DualBranchPE": 5, "BurstPE": 1}, g, card)
+    return {"rows": rows, "launches": launches}
+
+
+# the stride-2 layers whose dw the conv1d_dw kernel computes in the
+# benchmark's cells: (name, B, L in, Cin, Cout, padding)
+DW_LAYERS = DX_LAYERS + [("mc_convs.0", 64, 1024, 1, 64, "SAME"),
+                         ("BurstPE conv0", 64, 512, 1, 64, "SAME"),
+                         ("D Conv_0 Cin 1", 8, 1024, 1, 256, "SAME"),
+                         ("D Conv_0 Cin 2", 8, 1024, 2, 256, "SAME")]
+
+
+def conv_dw_check(W, card) -> dict:
+    """The stride-2 dw kernel on the card (phase 5c); ``W`` is
+    ``gennet_tpu_torch.ops.conv1d_dw``. Returns its rows by layer and its
+    launches per PE iteration."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    rows = {}
+    for name, B, L_in, cin, cout, padding in DW_LAYERS:
+        x = s2_input(g, B, L_in, cin, padding)
+        L = x.shape[-1]
+        dy = torch.randn((B, cout, (L - 5) // 2 + 1), generator=g, device=dev)
+        got = W.conv1d_dw(dy, x, 5)
+        plain = W.conv1d_dw_ref(dy, x, 5)
+
+        def cudnn():
+            return torch.nn.grad.conv1d_weight(x, (cout, cin, 5), dy, stride=2)
+
+        r64 = W.conv1d_dw_ref(dy.double(), x.double(), 5)
+        err, e_k, e_c = rel_max(got, plain), rel_max(got, r64), rel_max(cudnn(), r64)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()) or not err <= CONV_TOL:
+            fail(f"conv dw {name}: kernel off its plain version by {err:.3e} of the maximum")
+        if not e_k <= 2 * e_c:
+            fail(f"conv dw {name}: kernel off float64 by {e_k:.3e}, over twice cuDNN's {e_c:.3e}")
+        if not torch.equal(got, W.conv1d_dw(dy, x, 5)):
+            fail(f"conv dw {name}: two calls on the same input differ")
+        del r64, plain
+        k1 = graph_ms(lambda: W.conv1d_dw(dy, x, 5))
+        c1 = graph_ms(cudnn)
+        k2 = graph_ms(lambda: W.conv1d_dw(dy, x, 5))
+        c2 = graph_ms(cudnn)
+        flops, nbytes = dx_cost(B, L, cin, cout)  # the same products and tensors as dx
+        bms, bby = bound(flops, nbytes)
+        k_ms, c_ms = min(k1, k2), min(c1, c2)
+        plan = W.plan(B, dy.shape[-1], cin, cout, 5, torch.cuda.get_device_properties(dev)
+                      .multi_processor_count)
+        rows[name] = {"B": B, "L": L, "cin": cin, "cout": cout, "plan": plan, "kernel_ms": k_ms,
+                      "cudnn_ms": c_ms, "bound_ms": bms, "bound_by": bby, "at": bms / k_ms,
+                      "cudnn_at": bms / c_ms, "rel_plain": err, "f64_kernel": e_k,
+                      "f64_cudnn": e_c}
+        print(f"conv dw {name} (B={B} L={L} Cin={cin} Cout={cout}; BN, MT, splits {plan}): rel "
+              f"{err:.2e} against plain (limit {CONV_TOL:g}); against float64 kernel {e_k:.2e}, "
+              f"cuDNN FP32 wgrad {e_c:.2e}; kernel {k1:.4f}/{k2:.4f} ms, cuDNN wgrad "
+              f"{c1:.4f}/{c2:.4f} ms (graph replays, order kernel, cuDNN, kernel, cuDNN); "
+              f"kernel {flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s, cuDNN "
+              f"{flops / (c_ms * 1e-3) / 1e12:.2f}; bound {bms:.4f} ms by {bby} "
+              f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB), kernel at {bms / k_ms:.3f}, "
+              f"cuDNN at {bms / c_ms:.3f} [{card}]")
+        del x, dy, got
+
+    launches = pe_launches(W, "conv dw", {"DualBranchPE": 6, "BurstPE": 2}, g, card)
     return {"rows": rows, "launches": launches}
 
 
@@ -2509,6 +2608,11 @@ def main():
 
     dx_summary = conv_dx_check(S, card)
 
+    # ---- 5c. the stride-2 dw kernel ------------------------------------------
+    from gennet_tpu_torch.ops import conv1d_dw as W
+
+    dw_summary = conv_dw_check(W, card)
+
     # ---- 6. slice 1: train-bbh through the CLI, default recipe -------------
     from gennet_tpu_torch.cli.main import main as cli_main
 
@@ -2908,6 +3012,11 @@ def main():
         "source": "gennet_tpu_torch/csrc/conv1d_dx_s2.cu",
         "replaces": None, "library": "cuDNN FP32 dgrad (deterministic)",
         "launches_per_iteration": dx_summary["launches"], "rows": dx_summary["rows"],
+    }, {
+        "name": "conv1d_dw_s2_f32", "route": "cuda",
+        "source": "gennet_tpu_torch/csrc/conv1d_dw_s2.cu",
+        "replaces": None, "library": "cuDNN FP32 wgrad (deterministic)",
+        "launches_per_iteration": dw_summary["launches"], "rows": dw_summary["rows"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

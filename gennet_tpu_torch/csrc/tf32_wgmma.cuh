@@ -1,5 +1,6 @@
 // 3xTF32 warpgroup matrix multiply for Hopper (sm_90a), shared by the
-// port's kernels (conv1d_same.cu, conv1d_dx_s2.cu, phasor_irdft.cu).
+// port's kernels (conv1d_same.cu, conv1d_dx_s2.cu, conv1d_dw_s2.cu,
+// phasor_irdft.cu).
 //
 // A float32 product a*b is taken as three TF32 tensor-core products,
 //
@@ -143,6 +144,25 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Close this thread's group of cp.async copies issued since the last one
+// (an empty group where none were), and wait until all but the newest N
+// groups have landed; their data is then visible to this thread.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Makes this thread's shared-memory stores visible to the async proxy
+// (wgmma's operand reads): a B operand that threads store themselves is
+// fenced before the stage's barrier is arrived on.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- wgmma issue and completion ----

@@ -71,12 +71,14 @@ class Conv1d(nn.Module):
     (Cout, Cin, K) = flax kernel (K, Cin, Cout) transposed. Computes in
     ``compute_dtype``.
 
-    On a card, a float32 call at stride 2 with at least 8 input channels
-    takes its input gradient from the port's kernel
-    (:func:`~gennet_tpu_torch.ops.conv1d_dx.conv1d_s2`; the rule is
-    :func:`~gennet_tpu_torch.ops.conv1d_dx.routes`); its forward, weight
-    gradient and bias gradient stay cuDNN's and torch's. Every other call
-    is ``F.conv1d``.
+    On a card, a float32 call at stride 2 takes its weight gradient from
+    the port's dw kernel, and with at least 8 input channels its input
+    gradient from the port's dx kernel
+    (:func:`~gennet_tpu_torch.ops.conv1d_dx.conv1d_s2`; the rules are
+    :func:`~gennet_tpu_torch.ops.conv1d_dx.routes` and
+    :func:`~gennet_tpu_torch.ops.conv1d_dx.routes_dx`); its forward stays
+    cuDNN's, and its bias gradient and narrower input gradients cuDNN's and
+    torch's. Every other call is ``F.conv1d``.
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 1,

@@ -90,6 +90,8 @@ def load() -> ctypes.CDLL:
     lib.conv1d_dx_s2_f32.restype = ctypes.c_int
     lib.conv1d_dx_s2_pack_f32.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.conv1d_dx_s2_pack_f32.restype = ctypes.c_int
+    lib.conv1d_dw_s2_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.conv1d_dw_s2_f32.restype = ctypes.c_int
     lib.gennet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.gennet_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib

@@ -1,6 +1,7 @@
 """The input gradient (dx) of a stride-2 1-D convolution: the CUDA kernel's
 wrapper, its plain PyTorch version, and the op through which
-``models.layers.Conv1d`` takes it.
+``models.layers.Conv1d`` takes it and the weight gradient
+(``ops/conv1d_dw.py``).
 
 For y = ``F.conv1d(x, w, stride=2)`` with x (B, Cin, L), w (Cout, Cin, K)
 and dy (B, Cout, Ly), Ly = (L − K) // 2 + 1,
@@ -15,14 +16,15 @@ the kernel; on a CPU tensor it runs the plain version
 use. There is no fallback from one to the other: a CUDA tensor launches
 the kernel or raises.
 
-The route (:func:`routes`) depends only on what the layer sees: a float32
-CUDA input, stride 2, at least ``MIN_CIN`` input channels (the kernel's
-narrowest N tile is 8 channels of dx, so D Conv_0's dx at Cin 1 or 2 stays
-cuDNN's) and a tap count the kernel takes (2 to ``MAX_K``). Such a layer
-runs :func:`conv1d_s2`: the forward is cuDNN's ``F.conv1d``, and so are
-the weight gradient and the bias's sum, which its own autograd node
-computes only as the engine asks for them; only dx comes from the kernel,
-and only when x needs a gradient.
+The route depends only on what the layer sees. A float32 CUDA call at
+stride 2 with a tap count the kernels take (2 to ``MAX_K``) runs
+:func:`conv1d_s2` (:func:`routes`): its forward is cuDNN's ``F.conv1d``,
+its weight gradient the dw kernel's at any Cin (D Conv_0's Cin 1 and 2
+included), and its bias gradient F.conv1d's own node, which sums dy over
+(0, 2). Its input gradient is this module's kernel where the call has at
+least ``MIN_CIN`` input channels (:func:`routes_dx`: the kernel's narrowest
+N tile is 8 channels of dx), else cuDNN's. Each gradient has a node of its
+own, so the engine computes only those it asks for.
 """
 
 import torch
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 
 from gennet_tpu_torch.ops import _build
 from gennet_tpu_torch.ops import conv1d as conv_ops
+from gennet_tpu_torch.ops import conv1d_dw
 from gennet_tpu_torch.ops.tf32 import cached_pack
 
 # Kernel launches in this process. Incremented only where the kernel is
@@ -41,11 +44,15 @@ MAX_K = 9
 
 
 def routes(x: torch.Tensor, w: torch.Tensor, stride: int) -> bool:
-    """Whether a conv layer's call takes :func:`conv1d_s2` (see the module
-    docstring)."""
+    """Whether a conv layer's call takes :func:`conv1d_s2`, whose weight
+    gradient is the dw kernel's (see the module docstring)."""
     return (stride == 2 and x.is_cuda and x.dtype == torch.float32
-            and w.dtype == torch.float32 and w.shape[1] >= MIN_CIN
-            and 2 <= w.shape[-1] <= MAX_K)
+            and w.dtype == torch.float32 and 2 <= w.shape[-1] <= MAX_K)
+
+
+def routes_dx(x: torch.Tensor, w: torch.Tensor, stride: int) -> bool:
+    """Whether such a call's input gradient is this module's kernel too."""
+    return routes(x, w, stride) and w.shape[1] >= MIN_CIN
 
 
 def conv1d_dx_ref(dy: torch.Tensor, w: torch.Tensor, L: int) -> torch.Tensor:
@@ -161,26 +168,87 @@ class _Dx(torch.autograd.Function):
         return d_dy, d_w, None
 
 
-class _InputGrad(torch.autograd.Function):
-    """The identity on y = ``F.conv1d(x.detach(), w, b, stride=2)``, with x
-    and w as inputs besides: its backward hands dy on to y's own node
-    (cuDNN's weight gradient and the bias's sum, each as the engine needs
-    it) and gives x the kernel's dx, if x needs a gradient."""
+class _Dw(torch.autograd.Function):
+    """:func:`~gennet_tpu_torch.ops.conv1d_dw.conv1d_dw` as a function of
+    (dy, x) that can be differentiated once more: dw is bilinear in them,
+    so its adjoints are the strided conv of x by the incoming gradient and
+    that gradient's transposed conv of dy."""
 
     @staticmethod
-    def forward(ctx, y, x, w):
-        ctx.save_for_backward(w)
-        ctx.length = x.shape[-1]
-        return y
+    def forward(ctx, dy, x, K):
+        ctx.save_for_backward(dy, x)
+        return conv1d_dw.conv1d_dw(dy, x, K)
+
+    @staticmethod
+    def backward(ctx, g):
+        dy, x = ctx.saved_tensors
+        d_dy = F.conv1d(x, g, stride=2) if ctx.needs_input_grad[0] else None
+        d_x = (torch.nn.grad.conv1d_input(x.shape, g, dy, stride=2)
+               if ctx.needs_input_grad[1] else None)
+        return d_dy, d_x, None
+
+
+class _InputGrad(torch.autograd.Function):
+    """The input gradient of :func:`conv1d_s2` as a node of its own: on x, a
+    token of y's shape whose value is never read; its backward gives x the
+    kernel's dx of the dy that :class:`_Join` hands it where
+    :func:`routes_dx`, else cuDNN's. w comes inside a tuple, so that it is
+    not an input of this node (a pass that asks for dw alone never runs
+    it), and keeps its history for R1's second derivatives."""
+
+    @staticmethod
+    def forward(ctx, x, shape, held):
+        ctx.save_for_backward(held[0])
+        ctx.x_shape = x.shape
+        return x.new_empty(()).expand(shape)
 
     @staticmethod
     def backward(ctx, dy):
         w, = ctx.saved_tensors
-        dx = _Dx.apply(dy.contiguous(), w, ctx.length) if ctx.needs_input_grad[1] else None
-        return dy, dx, None
+        dy = dy.contiguous()
+        dx = (_Dx.apply(dy, w, ctx.x_shape[-1]) if w.shape[1] >= MIN_CIN
+              else torch.nn.grad.conv1d_input(ctx.x_shape, w, dy, stride=2))
+        return dx, None, None
+
+
+class _WeightGrad(torch.autograd.Function):
+    """The weight gradient of :func:`conv1d_s2` as a node of its own, as
+    :class:`_InputGrad` is the input gradient's: on w, with x inside the
+    tuple; its backward gives w the dw kernel's gradient."""
+
+    @staticmethod
+    def forward(ctx, w, shape, held):
+        ctx.save_for_backward(held[0])
+        ctx.taps = w.shape[-1]
+        return w.new_empty(()).expand(shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, = ctx.saved_tensors
+        return _Dw.apply(dy.contiguous(), x.contiguous(), ctx.taps), None, None
+
+
+class _Join(torch.autograd.Function):
+    """y, F.conv1d's value (whose own node gives the bias dy's sum over
+    (0, 2)), joined with the gradient tokens: the identity on y, whose
+    backward hands dy to each. The engine then runs a token's node only
+    when it needs that token's input's gradient."""
+
+    @staticmethod
+    def forward(ctx, y, *tokens):
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (dy,) * len(ctx.needs_input_grad)
 
 
 def conv1d_s2(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """``F.conv1d(x, w, bias, stride=2)`` (no padding: the layer pads
-    first) whose input gradient is :func:`conv1d_dx`."""
-    return _InputGrad.apply(F.conv1d(x.detach(), w, bias, stride=2), x, w)
+    first) whose weight gradient is the dw kernel's and whose input
+    gradient is :func:`conv1d_dx` where :func:`routes_dx`, each computed
+    only when the engine asks for it."""
+    y = F.conv1d(x.detach(), w.detach(), bias, stride=2)
+    tokens = [grad.apply(t, y.shape, (other,))
+              for grad, t, other in ((_InputGrad, x, w), (_WeightGrad, w, x)) if t.requires_grad]
+    return _Join.apply(y, *tokens) if tokens else y

@@ -36,6 +36,7 @@ import traceback
 import torch
 
 from gennet_tpu_torch.ops import conv1d as conv_ops
+from gennet_tpu_torch.ops import conv1d_dw as conv_dw_ops
 from gennet_tpu_torch.ops import conv1d_dx as conv_dx_ops
 from gennet_tpu_torch.ops import phasor_dft as phasor_ops
 from gennet_tpu_torch.ops import tf32
@@ -45,7 +46,8 @@ from gennet_tpu_torch.runtime import trace
 # and the kernels' one-time attributes are set up outside the graph
 WARMUP = 2
 
-_COUNTED = (conv_ops, conv_dx_ops, phasor_ops)  # the kernel wrappers with a LAUNCHES count
+# the kernel wrappers with a LAUNCHES count
+_COUNTED = (conv_ops, conv_dx_ops, conv_dw_ops, phasor_ops)
 
 
 def graphable(device, mesh=None, what: str = "the step") -> bool:
