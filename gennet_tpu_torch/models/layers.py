@@ -15,7 +15,9 @@ weight and bias to the compute dtype and return it (flax
 reduced dtype, as flax does; the norms reduce their statistics and
 normalise in float32 and return the compute dtype (flax ``_normalize``
 with ``force_float32_reductions``); :class:`PallasConv1d` always runs
-the float32 kernel, as ``PallasConv1D`` does.
+the float32 kernel, as ``PallasConv1D`` does. Each conversion that changes
+a dtype adds 1 to the trace's ``casts`` counter
+(:mod:`gennet_tpu_torch.runtime.trace`).
 """
 
 import math
@@ -26,6 +28,7 @@ from torch import nn
 
 from gennet_tpu_torch.ops import conv1d as conv1d_ops
 from gennet_tpu_torch.ops import conv1d_dx
+from gennet_tpu_torch.runtime import trace
 
 # std of a unit normal truncated to [−2, 2]; flax divides by it so the
 # truncated draw keeps the requested variance
@@ -40,6 +43,8 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator | None = No
 
 
 def _cast(dtype: torch.dtype, *tensors):
+    """``tensors`` in ``dtype``; each that changes dtype counts as a cast."""
+    trace.count("casts", sum(t.dtype != dtype for t in tensors))
     return tuple(t.to(dtype) for t in tensors)
 
 
@@ -172,7 +177,7 @@ class BatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x, batch_stats: bool, commit: bool = False):
-        x = x.float()
+        x, = _cast(torch.float32, x)
         shape = [1] * x.ndim
         shape[self.channel_dim] = -1
         if batch_stats:
@@ -187,7 +192,7 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-        return y.to(self.compute_dtype)
+        return _cast(self.compute_dtype, y)[0]
 
 
 class GroupNorm(nn.GroupNorm):
@@ -209,7 +214,8 @@ class GroupNorm(nn.GroupNorm):
         nn.init.zeros_(self.bias)
 
     def forward(self, x, batch_stats: bool = False, commit: bool = False):
-        return super().forward(x.float()).to(self.compute_dtype)
+        x, = _cast(torch.float32, x)
+        return _cast(self.compute_dtype, super().forward(x))[0]
 
 
 class NoNorm(nn.Module):

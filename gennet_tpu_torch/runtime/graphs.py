@@ -28,7 +28,9 @@ every tensor the step updates is bumped, so that no weight pack cached
 from their old values is served (:func:`gennet_tpu_torch.ops.tf32.cached_pack`).
 The caller advances its own step count. A capture records the
 ``graph.warmup`` and ``graph.capture`` spans, the replays ``graph.replay``
-(:mod:`gennet_tpu_torch.runtime.trace`).
+(:mod:`gennet_tpu_torch.runtime.trace`); ``graph.capture`` carries how far
+each of the trace's counters moved while the one recorded iteration ran
+(``casts``: its dtype conversions).
 """
 
 import traceback
@@ -140,8 +142,10 @@ class StepGraph:
                 graph = self._new_graph(list(rows[0]), generators, n)
                 torch.cuda.synchronize()
             with trace.span("graph.capture") as took:
+                before = trace.counts()
                 self._capture(graph, step)
                 torch.cuda.synchronize()
+                took.attrs.update({k: v - before.get(k, 0) for k, v in trace.counts().items()})
             self.capture_s = took.seconds
             sig = self._sig = _signature(tensors(), generators)
         buf, n_eager = self._buf, len(rows)

@@ -20,8 +20,18 @@ The spans, each read by a per-layer metric of the benchmark
 - ``graph.warmup``, ``graph.capture`` and ``graph.replay`` (attribute
   ``replays``): :class:`~gennet_tpu_torch.runtime.graphs.StepGraph`'s
   eager iterations before a capture, the capture, and the replays;
+  ``graph.capture`` also carries how far each counter moved while it ran
+  (below): what one iteration's Python did;
 - ``optim.adam``: the construction of an optimizer
   (:func:`gennet_tpu_torch.runtime.optim.adam`).
+
+Counters are running totals by name, which the code that does the work
+adds to (:func:`count`) and nothing resets:
+
+- ``casts``: the dtype conversions that the layers of
+  :mod:`gennet_tpu_torch.models.layers` make (input, weight and bias cast
+  to a compute dtype, a norm's float32 round trip); a float32 model adds
+  0. Autograd's casts of the gradients back are not counted.
 """
 
 import collections
@@ -33,6 +43,7 @@ CAPACITY = 65536
 
 # (id, name, start_ns, end_ns, parent_id, attrs)
 _RECORDS = collections.deque(maxlen=CAPACITY)
+_COUNTS = collections.Counter()
 _IDS = itertools.count(1)
 _OPEN = threading.local()
 
@@ -77,3 +88,13 @@ def spans() -> list:
 def clear():
     """Forget every record."""
     _RECORDS.clear()
+
+
+def count(name: str, n: int = 1):
+    """Add ``n`` to the counter ``name`` (0 makes it exist)."""
+    _COUNTS[name] += n
+
+
+def counts() -> dict:
+    """A copy of every counter's running total."""
+    return dict(_COUNTS)

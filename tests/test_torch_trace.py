@@ -12,7 +12,8 @@ benchmark's readers of them (``benchmark/harness/program_spans.py``).
   ``chunk_prep_ms``, its median, the sums, and ``None`` with nothing to
   read.
 - On a card (``-m gpu``): a replayed chunk records ``graph.warmup`` and
-  ``graph.capture`` once, then only ``graph.replay``. The card's machine
+  ``graph.capture`` once, then only ``graph.replay``; the capture carries
+  the ``casts`` counter's move. The card's machine
   has no JAX, so there the file runs with ``pytest --noconftest -m gpu``.
 """
 
@@ -238,7 +239,8 @@ def test_a_replayed_chunk_records_its_capture_once():
     chunks = [r for r in recs if r[1] == "chunk"]
     assert [r[5] for r in chunks] == [{"graph": "CNN step", "n": 5}] * 3
     kids = [[(r[1], r[5]) for r in recs if r[4] == c[0]] for c in chunks]
-    assert kids[0] == [("graph.warmup", {}), ("graph.capture", {}),
+    # a float32 model's layers convert nothing (``casts`` 0)
+    assert kids[0] == [("graph.warmup", {}), ("graph.capture", {"casts": 0}),
                        ("graph.replay", {"replays": 3})]
     assert kids[1] == kids[2] == [("graph.replay", {"replays": 5})]
     warm, capture = _by_name(recs)["graph.warmup"][0], _by_name(recs)["graph.capture"][0]
